@@ -1,0 +1,220 @@
+"""The port's coded-combine kernels against the reference's.
+
+On the CPU the port's `ops` send tensors to the plain PyTorch versions
+(`repro_torch.kernels.ref`); these are held against `repro.kernels.ref`
+(the pure-jnp oracles) and `repro.kernels.ops` (the Pallas kernels, in
+interpret mode on the CPU) on the same numpy-seeded inputs, over the case
+grids of ``tests/test_kernels.py``. Tolerances: 1e-12 in f64 (the
+reference's own f64 parity bound), 1e-5 in f32 and 2e-2 in bf16 (its
+f32/bf16 kernel tolerances). f64 runs on the x64 switch set by
+``tests/conftest.py``. The CUDA kernels themselves are compared with the
+plain versions on the card in ``tests/test_torch_kernels_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels.coded_combine import (
+    LAUNCHES,
+    coded_admm_update_kernel,
+    coded_combine_kernel,
+)
+
+TOL = {
+    "float32": dict(rtol=1e-5, atol=1e-5),
+    "bfloat16": dict(rtol=2e-2, atol=2e-2),
+    "float64": dict(rtol=1e-12, atol=1e-12),
+}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "float64": jnp.float64}
+TORCH = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float64": torch.float64,
+}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor of ``dtype`` (bf16
+    rounds from float32 to nearest even in both frameworks)."""
+    src = a.astype(np.float64 if dtype == "float64" else np.float32)
+    return jnp.asarray(src).astype(JNP[dtype]), torch.from_numpy(src).to(
+        TORCH[dtype]
+    )
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.to(torch.float64).numpy()
+    return np.asarray(jnp.asarray(t).astype(jnp.float64))
+
+
+def _inputs(J, n, dtype, seed, coeff_dtype=None):
+    rng = np.random.default_rng(seed)
+    msgs = _pair(rng.standard_normal((J, n)), dtype)
+    coeffs = _pair(rng.standard_normal(J), coeff_dtype or
+                   ("float64" if dtype == "float64" else "float32"))
+    xyz = [_pair(rng.standard_normal(n), dtype) for _ in range(3)]
+    return msgs, coeffs, xyz
+
+
+@pytest.mark.parametrize("J,n", [(3, 4096), (5, 5000), (16, 12_288), (2, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_matches_reference(J, n, dtype):
+    (jm, tm), (jc, tc), _ = _inputs(J, n, dtype, J * n)
+    out = t_ops.coded_combine(tm[None], tc[None])[0]
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(r_ref.coded_combine_ref(jm, jc)), **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(r_ops.coded_combine(jm, jc)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("J,n", [(3, 4096), (4, 9999)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_matches_reference(J, n, dtype):
+    (jm, tm), (jc, tc), xyz = _inputs(J, n, dtype, J + n)
+    (jx, tx), (jy, ty), (jz, tz) = xyz
+    tau, rho = 2.5, 1.0
+    out = t_ops.coded_admm_update(
+        tm[None], tc[None], tx[None], ty[None], tz[None],
+        torch.tensor([tau]), torch.tensor([rho]),
+    )[0]
+    assert out.dtype == tx.dtype
+    jtau = jnp.asarray(tau, jnp.float32)
+    for want in (
+        r_ref.coded_admm_update_ref(jm, jc, jx, jy, jz, jtau, rho),
+        r_ops.coded_admm_update(jm, jc, jx, jy, jz, jtau, rho),
+    ):
+        np.testing.assert_allclose(_np(out), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_mask_parity(dtype):
+    """Masked decode patterns (deadline truncation), as in the reference's
+    mask parity test."""
+    J, n = 6, 5000
+    (jm, tm), (jc, tc), ((jx, tx), (jy, ty), (jz, tz)) = _inputs(J, n, dtype, 17)
+    mask = np.array([1, 0, 1, 1, 0, 1], np.float32)
+    out = t_ops.coded_admm_update(
+        tm[None], tc[None], tx[None], ty[None], tz[None],
+        torch.tensor([1.3]), torch.tensor([0.9]), torch.from_numpy(mask)[None],
+    )[0]
+    jtau, jmask = jnp.asarray(1.3, jnp.float32), jnp.asarray(mask)
+    for want in (
+        r_ref.coded_admm_update_ref(jm, jc, jx, jy, jz, jtau, 0.9, jmask),
+        r_ops.coded_admm_update(jm, jc, jx, jy, jz, jtau, 0.9, jmask),
+    ):
+        np.testing.assert_allclose(_np(out), _np(want), **TOL[dtype])
+
+
+def test_f64_parity_at_1e12():
+    """f64 end to end at the reference's f64 bound (x64 from conftest)."""
+    J, n = 5, 3000
+    (jm, tm), (jc, tc), ((jx, tx), (jy, ty), (jz, tz)) = _inputs(J, n, "float64", 7)
+    mask = np.array([1.0, 1.0, 0.0, 1.0, 1.0])
+    assert jm.dtype == jnp.float64
+    out_c = t_ops.coded_combine(tm[None], tc[None], torch.from_numpy(mask)[None])[0]
+    assert out_c.dtype == torch.float64
+    for want in (
+        r_ref.coded_combine_ref(jm, jc, jnp.asarray(mask)),
+        r_ops.coded_combine(jm, jc, jnp.asarray(mask)),
+    ):
+        np.testing.assert_allclose(_np(out_c), _np(want), **TOL["float64"])
+    out_u = t_ops.coded_admm_update(
+        tm[None], tc[None], tx[None], ty[None], tz[None],
+        torch.tensor([2.2], dtype=torch.float64),
+        torch.tensor([0.7], dtype=torch.float64), torch.from_numpy(mask)[None],
+    )[0]
+    assert out_u.dtype == torch.float64
+    jtau = jnp.asarray(2.2)
+    for want in (
+        r_ref.coded_admm_update_ref(jm, jc, jx, jy, jz, jtau, 0.7, jnp.asarray(mask)),
+        r_ops.coded_admm_update(jm, jc, jx, jy, jz, jtau, 0.7, jnp.asarray(mask)),
+    ):
+        np.testing.assert_allclose(_np(out_u), _np(want), **TOL["float64"])
+
+
+def test_runs_axis_matches_per_run_reference():
+    """R > 1: every run has its own messages, coefficients, mask, tau and
+    rho; run r of the port equals the reference called on run r alone."""
+    R, J, n = 4, 6, 640
+    rng = np.random.default_rng(11)
+    msgs = rng.standard_normal((R, J, n))
+    coeffs = rng.standard_normal((R, J))
+    mask = (rng.random((R, J)) > 0.3).astype(np.float64)
+    x, y, z = (rng.standard_normal((R, n)) for _ in range(3))
+    tau = rng.random(R) * 3 + 0.5
+    rho = rng.random(R) + 0.5
+    t = [torch.from_numpy(a) for a in (msgs, coeffs, x, y, z, tau, rho, mask)]
+    out_u = t_ops.coded_admm_update(*t)
+    out_c = t_ops.coded_combine(t[0], t[1], t[7])
+    for r in range(R):
+        np.testing.assert_allclose(
+            _np(out_u[r]),
+            _np(r_ref.coded_admm_update_ref(
+                jnp.asarray(msgs[r]), jnp.asarray(coeffs[r]), jnp.asarray(x[r]),
+                jnp.asarray(y[r]), jnp.asarray(z[r]), jnp.asarray(tau[r]),
+                float(rho[r]), jnp.asarray(mask[r]),
+            )),
+            **TOL["float64"],
+        )
+        np.testing.assert_allclose(
+            _np(out_c[r]),
+            _np(r_ref.coded_combine_ref(
+                jnp.asarray(msgs[r]), jnp.asarray(coeffs[r]), jnp.asarray(mask[r])
+            )),
+            **TOL["float64"],
+        )
+
+
+def test_nan_in_dead_rows_cannot_leak():
+    """NaN planted in masked-out message rows never reaches the decoded
+    combine (the reference's test_async guarantee), in either package."""
+    rng = np.random.default_rng(0)
+    msgs = rng.normal(size=(6, 64)).astype(np.float32)
+    coeffs = rng.normal(size=6).astype(np.float32)
+    mask = np.array([1, 1, 0, 1, 0, 1], dtype=np.float32)
+    poisoned = msgs.copy()
+    poisoned[mask == 0] = np.nan
+    tmask = torch.from_numpy(mask)[None]
+    clean = t_ops.coded_combine(torch.from_numpy(msgs)[None], torch.from_numpy(coeffs)[None], tmask)
+    out = t_ops.coded_combine(
+        torch.from_numpy(poisoned)[None], torch.from_numpy(coeffs)[None], tmask
+    )
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, clean)
+    want = r_ops.coded_combine(poisoned, coeffs, mask)
+    np.testing.assert_allclose(_np(out[0]), _np(want), **TOL["float32"])
+    ones = torch.ones(1, 64)
+    upd = t_ops.coded_admm_update(
+        torch.from_numpy(poisoned)[None], torch.from_numpy(coeffs)[None],
+        ones, ones, ones, torch.tensor([1.0]), torch.tensor([1.0]), tmask,
+    )
+    assert torch.isfinite(upd).all()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On a CPU tensor `ops` is exactly the plain version and launches no
+    kernel; the kernel wrappers refuse CPU tensors; other devices raise."""
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy(rng.standard_normal((2, 3, 50)))
+    c = torch.from_numpy(rng.standard_normal((2, 3)))
+    x, y, z = (torch.from_numpy(rng.standard_normal((2, 50))) for _ in range(3))
+    tau, rho = torch.tensor([1.5, 2.0], dtype=torch.float64), torch.ones(2, dtype=torch.float64)
+    before = dict(LAUNCHES)
+    assert torch.equal(t_ops.coded_combine(m, c), t_ref.coded_combine_ref(m, c, torch.ones(2, 3)))
+    assert torch.equal(
+        t_ops.coded_admm_update(m, c, x, y, z, tau, rho),
+        t_ref.coded_admm_update_ref(m, c, x, y, z, tau, rho, torch.ones(2, 3)),
+    )
+    assert LAUNCHES == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        coded_combine_kernel(m, c, torch.ones(2, 3))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        coded_admm_update_kernel(m, c, torch.ones(2, 3), x, y, z, tau, rho)
+    with pytest.raises(ValueError, match="no coded-combine path"):
+        t_ops.coded_combine(m.to("meta"), c.to("meta"))

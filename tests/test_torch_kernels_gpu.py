@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked ``gpu``: each test skips without a CUDA device (the kernels have no
+CPU or interpret mode). This file imports neither JAX nor `repro`, so it
+runs on a GPU machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_kernels_gpu.py
+
+(``--noconftest``: the suite's conftest configures JAX.) Tolerances are
+the reference's kernel-test levels, by output dtype: 1e-12 in f64, 1e-5
+in f32, 2e-2 in bf16 (only the update's bf16-rounded output; the combine
+of bf16 messages returns f32 and is held at f32 round-off).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels.coded_combine import LAUNCHES
+
+TOL = {
+    "float32": dict(rtol=1e-5, atol=1e-5),
+    "bfloat16": dict(rtol=2e-2, atol=2e-2),
+    "float64": dict(rtol=1e-12, atol=1e-12),
+}
+TORCH = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float64": torch.float64,
+}
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.float64).cpu().numpy()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("R,J,n", [(16, 6, 3), (9, 3, 640), (3, 16, 5001)])
+def test_cuda_kernels_match_plain_version(cuda, dtype, R, J, n):
+    """On the card: kernel == plain version (same tolerances), NaN in dead
+    rows dropped, launch counters advance by one per call."""
+    dt = TORCH[dtype]
+    ct = t_ref.compute_dtype(dt)
+    g = torch.Generator(device="cpu").manual_seed(R * J * n)
+    msgs = torch.randn(R, J, n, generator=g).to(dt)
+    coeffs = torch.randn(R, J, generator=g).to(ct)
+    mask = (torch.rand(R, J, generator=g) > 0.3).float()
+    mask[:, 0] = 0.0
+    msgs[:, 0] = float("nan")
+    x, y, z = (torch.randn(R, n, generator=g).to(dt) for _ in range(3))
+    tau = torch.rand(R, generator=g).to(ct) + 0.5
+    rho = torch.rand(R, generator=g).to(ct) + 0.5
+    cpu_args = (msgs, coeffs, x, y, z, tau, rho, mask)
+    dev_args = tuple(a.to(cuda) for a in cpu_args)
+    before = dict(LAUNCHES)
+    got_u = t_ops.coded_admm_update(*dev_args)
+    got_c = t_ops.coded_combine(dev_args[0], dev_args[1], dev_args[7])
+    torch.cuda.synchronize()
+    assert LAUNCHES["coded_admm_update"] == before["coded_admm_update"] + 1
+    assert LAUNCHES["coded_combine"] == before["coded_combine"] + 1
+    want_u = t_ref.coded_admm_update_ref(*dev_args)
+    want_c = t_ref.coded_combine_ref(dev_args[0], dev_args[1], dev_args[7])
+    assert got_u.dtype == dt and got_c.dtype == ct
+    assert torch.isfinite(got_u).all() and torch.isfinite(got_c).all()
+    np.testing.assert_allclose(_np(got_u), _np(want_u), **TOL[dtype])
+    np.testing.assert_allclose(
+        _np(got_c), _np(want_c), **TOL[str(ct).removeprefix("torch.")]
+    )

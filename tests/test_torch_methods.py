@@ -1,0 +1,270 @@
+"""The port's method kernel and drivers against `repro.methods`.
+
+Host side: the port's ``prepare`` must equal the reference's bitwise.
+Device side: the reference's own ``prepare`` output, converted by
+`prepared_to_device`, runs through the port's step loop and must track
+the reference's `run_serial`/`run_batch` traces — so a host-side and a
+device-side difference cannot hide each other. All device work here is on
+the CPU in float64.
+
+Trajectory tolerance: rtol 1e-9, atol 1e-12. PyTorch's CPU matmul/einsum
+sum in another order than XLA, and the ADMM iteration is contractive, so
+the gap stays at round-off: measured on this suite's cases, the worst
+elementwise gap was 8.3e-12 relative (a near-zero entry), 6e-4 of the
+tolerance.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.experiments as rx
+import repro.methods as rm
+import repro_torch.experiments as tx
+import repro_torch.methods as tm
+from repro.core.admm import run_incremental_admm as r_run_incremental
+from repro.methods import driver as r_driver
+from repro_torch.core.admm import run_incremental_admm as t_run_incremental
+from repro_torch.core.timing import TimingModel
+from repro_torch.methods import driver as t_driver
+
+ITERS = 40
+TOL = dict(rtol=1e-9, atol=1e-12)
+CPU64 = dict(device="cpu", dtype=torch.float64)
+FIELDS = ("accuracy", "test_error", "z_err", "final_x", "final_z")
+METHOD_KW = {
+    "sI-ADMM": dict(),
+    "csI-ADMM": dict(S=1, scheme="cyclic"),
+    "I-ADMM": dict(),
+}
+
+
+def _cases(method, seed=0, **kw):
+    """The same run as a reference `Case` and a port `Case`."""
+    kw = {
+        **dict(method=method, dataset="usps", N=5, K=3, M=36, iters=ITERS,
+               seed=seed, p_straggle=0.3),
+        **METHOD_KW[method], **kw,
+    }
+    return rx.Case(**kw), tx.Case(**kw)
+
+
+def _materialize(case, pkg):
+    """(kernel, problem, net, cfg) of a case in package ``pkg``."""
+    from importlib import import_module
+
+    core = import_module(f"{pkg}.core")
+    kernel = import_module(f"{pkg}.methods").get_kernel(case.method)
+    net = core.make_network(case.N, case.connectivity, seed=case.seed)
+    prob = core.allocate(core.DATASETS[case.dataset](case.seed), case.N, case.K)
+    return kernel, prob, net, kernel.config(case)
+
+
+def _assert_traces_close(got, want, **tol):
+    for f in FIELDS:
+        np.testing.assert_allclose(
+            getattr(got, f), np.asarray(getattr(want, f)), err_msg=f,
+            **(tol or TOL),
+        )
+    for f in ("comm_cost", "sim_time"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_registry_holds_the_ported_family():
+    assert sorted(tm.KERNELS) == ["I-ADMM", "csI-ADMM", "sI-ADMM"]
+    assert len({id(k) for k in tm.KERNELS.values()}) == 1
+    with pytest.raises(KeyError, match="unknown method"):
+        tm.get_kernel("W-ADMM")
+
+
+@pytest.mark.parametrize("method", sorted(METHOD_KW))
+def test_prepare_is_bitwise_the_reference(method):
+    for seed in (0, 1):
+        rc, tc = _cases(method, seed)
+        rk, rp, rn, rcfg = _materialize(rc, "repro")
+        tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+        assert rk.static_signature(rp, rcfg, ITERS) == tk.static_signature(
+            tp, tcfg, ITERS
+        )
+        a = rk.prepare(rp, rn, rcfg, ITERS)
+        b = tk.prepare(tp, tn, tcfg, ITERS)
+        assert a.statics == b.statics and a.max_statics == b.max_statics
+        for name in ("consts", "steps"):
+            for x, y in zip(getattr(a, name), getattr(b, name), strict=True):
+                x, y = np.asarray(x), np.asarray(y)
+                assert x.dtype == y.dtype and np.array_equal(x, y), name
+        assert np.array_equal(a.comm, b.comm)
+        assert np.array_equal(a.sim_time, b.sim_time)
+
+
+@pytest.mark.parametrize("method", sorted(METHOD_KW))
+def test_reference_prepare_through_port_step_serial(method):
+    """repro's prepare -> prepared_to_device -> the port's step loop ==
+    repro's run_serial, per step and in the final iterates."""
+    rc, _ = _cases(method)
+    rk, rp, rn, rcfg = _materialize(rc, "repro")
+    prep = rk.prepare(rp, rn, rcfg, ITERS)
+    consts, steps = tm.prepared_to_device(
+        *t_driver._stack([prep]), **CPU64
+    )
+    assert consts[-1].dtype == torch.int64 and steps[0].dtype == torch.int64
+    assert consts[0].dtype == torch.float64
+    statics = {**prep.statics, **prep.max_statics}
+    x, z, (acc, te, ze) = tm.run_steps(
+        tm.get_kernel(method), statics, consts, steps
+    )
+    want = rm.run_serial(rk, rp, rn, rcfg, ITERS)
+    for got, ref in ((acc[0], want.accuracy), (te[0], want.test_error),
+                     (ze[0], want.z_err), (x[0], want.final_x),
+                     (z[0], want.final_z)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_reference_batch_through_port_step():
+    """repro's stacked batch (sI + csI mixed, 2 seeds each) through the
+    port's step == repro's run_batch, run by run."""
+    pairs = [_cases(m, s) for m in ("sI-ADMM", "csI-ADMM") for s in (0, 1)]
+    mats = [_materialize(rc, "repro") for rc, _ in pairs]
+    rk = mats[0][0]
+    args = ([m[1] for m in mats], [m[2] for m in mats], [m[3] for m in mats])
+    preps, statics, consts, steps = r_driver._stack_batch(rk, *args, ITERS)
+    consts, steps = tm.prepared_to_device(consts, steps, **CPU64)
+    x, z, (acc, te, ze) = tm.run_steps(
+        tm.get_kernel("csI-ADMM"), statics, consts, steps
+    )
+    want = rm.run_batch(rk, *args, ITERS)
+    for r, tr in enumerate(want):
+        np.testing.assert_allclose(acc[r].numpy(), tr.accuracy, **TOL)
+        np.testing.assert_allclose(te[r].numpy(), tr.test_error, **TOL)
+        np.testing.assert_allclose(ze[r].numpy(), tr.z_err, **TOL)
+        np.testing.assert_allclose(x[r].numpy(), tr.final_x, **TOL)
+        np.testing.assert_allclose(z[r].numpy(), tr.final_z, **TOL)
+
+
+@pytest.mark.parametrize("method", sorted(METHOD_KW))
+def test_port_run_serial_matches_reference(method):
+    rc, tc = _cases(method, seed=2)
+    rk, rp, rn, rcfg = _materialize(rc, "repro")
+    tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+    _assert_traces_close(
+        tm.run_serial(tk, tp, tn, tcfg, ITERS, **CPU64),
+        rm.run_serial(rk, rp, rn, rcfg, ITERS),
+    )
+
+
+def test_port_serial_equals_port_batch():
+    """The serial driver is the R = 1 case of the batched one: row by row
+    the same traces (the batch's MU is the max over its runs, so rows past
+    a run's own mu add exact zeros in another summation length)."""
+    pairs = [_cases(m, s) for m in ("sI-ADMM", "csI-ADMM") for s in (0, 1)]
+    mats = [_materialize(tc, "repro_torch") for _, tc in pairs]
+    tk = mats[0][0]
+    batch = tm.run_batch(
+        tk, [m[1] for m in mats], [m[2] for m in mats], [m[3] for m in mats],
+        ITERS, **CPU64,
+    )
+    for (k, p, n, c), tb in zip(mats, batch):
+        _assert_traces_close(tm.run_serial(k, p, n, c, ITERS, **CPU64), tb)
+
+
+def test_mixed_S_batch_gathers_out_of_bounds_and_matches():
+    """A mixed-S batch shares the gather bound MU = max mu, so the S=2 run
+    indexes past its N*b pool on the last agent's last partition (JAX
+    clamps such a gather; torch would raise). The port clamps explicitly,
+    and the rows past mu carry weight 0: it must run and match repro."""
+    iters = 80
+    pairs = [
+        _cases("csI-ADMM", seed=0, S=0, scheme="uncoded", iters=iters),
+        _cases("csI-ADMM", seed=0, S=2, scheme="cyclic", iters=iters),
+    ]
+    tmats = [_materialize(tc, "repro_torch") for _, tc in pairs]
+    tk = tmats[0][0]
+    preps, statics = t_driver._stack_batch(
+        tk, [m[1] for m in tmats], [m[2] for m in tmats],
+        [m[3] for m in tmats], iters,
+    )
+    prob = tmats[1][1]
+    agents, offsets = preps[1].steps[0], preps[1].steps[1]
+    unclamped = (
+        agents * prob.b + (statics["K"] - 1) * statics["P"] + offsets
+        + statics["MU"] - 1
+    )
+    assert unclamped.max() > prob.N * prob.b - 1  # the fault is exercised
+    got = tm.run_batch(
+        tk, [m[1] for m in tmats], [m[2] for m in tmats],
+        [m[3] for m in tmats], iters, **CPU64,
+    )
+    rmats = [_materialize(rc, "repro") for rc, _ in pairs]
+    want = rm.run_batch(
+        rmats[0][0], [m[1] for m in rmats], [m[2] for m in rmats],
+        [m[3] for m in rmats], iters,
+    )
+    for g, w in zip(got, want):
+        _assert_traces_close(g, w)
+
+
+def test_run_incremental_admm_wrapper():
+    rc, tc = _cases("csI-ADMM", seed=1)
+    _, rp, rn, _ = _materialize(rc, "repro")
+    _, tp, tn, _ = _materialize(tc, "repro_torch")
+    _assert_traces_close(
+        t_run_incremental(tp, tn, tc.admm_config(), ITERS,
+                          straggler=tc.timing_model(), **CPU64),
+        r_run_incremental(rp, rn, rc.admm_config(), ITERS,
+                          straggler=rc.timing_model()),
+    )
+
+
+def test_float32_run_tracks_float64():
+    """The default run dtype (float32) on the CPU stays within f32
+    round-off of the f64 run (normwise 1e-4; measured below 1e-5)."""
+    _, tc = _cases("csI-ADMM", seed=0)
+    tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+    a = tm.run_serial(tk, tp, tn, tcfg, ITERS, device="cpu")
+    b = tm.run_serial(tk, tp, tn, tcfg, ITERS, **CPU64)
+    assert a.final_x.dtype == np.float32
+    for f in FIELDS:
+        x, y = getattr(a, f).astype(np.float64), getattr(b, f)
+        assert np.abs(x - y).max() <= 1e-4 * np.abs(y).max(), f
+
+
+@pytest.mark.parametrize(
+    "timing", [dict(tau_max=2e-3), dict(churn_rate=20.0, mttr=0.05)]
+)
+def test_async_timing_raises(timing):
+    _, tc = _cases("csI-ADMM")
+    tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+    run = dataclasses.replace(tcfg, timing=TimingModel(**timing))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tm.run_serial(tk, tp, tn, run, ITERS, **CPU64)
+
+
+def test_unported_paths_raise():
+    _, tc = _cases("sI-ADMM")
+    tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tm.run_serial(tk, tp, tn, tcfg, ITERS, reductions=object(), **CPU64)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tm.run_batch(tk, [tp], [tn], [tcfg], ITERS, reductions=object(), **CPU64)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tm.run_sharded(tk, [tp], [tn], [tcfg], ITERS)
+    with pytest.raises(ValueError, match="run dtype"):
+        tm.run_serial(tk, tp, tn, tcfg, ITERS, device="cpu", dtype=torch.bfloat16)
+    exact = dataclasses.replace(
+        tcfg, cfg=dataclasses.replace(tcfg.cfg, exact_x=True)
+    )
+    with pytest.raises(ValueError, match="static signatures"):
+        tm.run_batch(tk, [tp, tp], [tn, tn], [tcfg, exact], ITERS, **CPU64)
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the default device works")
+    _, tc = _cases("sI-ADMM")
+    tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.run_serial(tk, tp, tn, tcfg, ITERS)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.prepared_to_device((np.zeros(2),), (), device="cuda", dtype=torch.float32)
