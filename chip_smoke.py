@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of `repro_torch` on one NVIDIA GPU: build, kernels, main path.
+"""Smoke test of `repro_torch` on one NVIDIA GPU: build, kernels, main paths.
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (nvcc):
@@ -9,21 +9,42 @@ toolkit (nvcc):
 Phases (any failure raises, exits non-zero and prints no result):
 
 1. build    — compile the CUDA sources of `repro_torch.kernels` (nvcc,
-              sm_90a) and print the build time and ptxas report.
-2. kernels  — every kernel of the main path against its plain PyTorch
-              version on the card, in f32, f64 and bf16, with NaN planted
+              sm_90a, one process per source, all at once) and print the
+              build times and ptxas reports.
+2. kernels  — every kernel against its plain PyTorch version on the card,
+              with times from CUDA events and torch.profiler, the card's
+              bound, the plain version's time and, where one PyTorch call
+              computes the same function, that call's time:
+              K1/K2 (coded combine) in f32, f64 and bf16, with NaN planted
               in dead message rows, at the fig5 step (R=16, J=6, n=3), the
               USPS step (R=9, J=3, n=640) and a fleet-scale step at the
-              paper's USPS width p=256 x d=10 (R=4096, J=16, n=2560).
-              Times from CUDA events, the memory bound, and the plain
-              version's time; for the combine also one `torch.bmm` on
-              pre-masked messages as a yardstick.
+              paper's USPS width (R=4096, J=16, n=2560), against
+              `torch.bmm`; K3 (flash attention) at the qwen3-0.6b prefill
+              step (B 4, S 2048, H 16, KV 8, hd 128) in bf16 and f32, with
+              a 512 window, at a ragged S = 1000, and at the MQA hd 256 and
+              hd 64 instances, against `scaled_dot_product_attention`; K5
+              (RG-LRU scan) at the recurrentgemma-9b prefill step (B 2,
+              S 2048, W 4096) with h0 and at a ragged S = 1000.
 3. fig5     — the paper's fig5 sweep at its registry defaults (1200 iters,
               S in {0,1,2,3} x 4 seeds = 16 runs) through `run_sweep` on
               the GPU in f64, held per run against the same sweep on the
               CPU, with the fused kernel's launch count checked.
 4. fig3_stragglers — one seed in f32 on the GPU (n = 640, the K=3 and K=4
               groups), held against the CPU in f64.
+5. serve-qwen3 — `repro_torch.launch.serve.serve` on qwen3-0.6b at full
+              width and depth in bf16: batch 4, prompt 2048, 32 new tokens.
+              K3 launches exactly once per layer of the one prefill (28)
+              and never in decode. Then, on the same weights: a profile
+              of a warm prefill and of 3 decode steps (device busy share,
+              top kernels), and the prefill's logits and cache on the
+              kernel path held against the plain path on the card, in
+              bf16 and with the model widened to f32.
+6. serve-rg — the same for recurrentgemma-9b (batch 2, prompt 2048, 16
+              new tokens): K5 launches once per recurrent layer (26).
+7. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
+              prompt 256) and the recurrentgemma smoke config: prefill
+              and 3 decode steps on the card (kernels) held against the
+              port on the CPU (plain versions), logits and caches.
 
 Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 card's name and power limit; the last line is
@@ -33,6 +54,8 @@ repository beside it, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +70,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # Peak rate outside the tensor cores, by accumulation type (NVIDIA H100
 # SXM data sheet): 67 TFLOP/s float32, 34 TFLOP/s float64.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# Peak rate for a product of inputs of the type: bf16 on the tensor cores
+# (989 TFLOP/s dense), float32 outside them (67 TFLOP/s).
+PEAK_PRODUCT_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel-vs-plain tolerance by OUTPUT dtype, normwise
 # (max |kernel - plain| <= tol * max(max |plain|, 1)), at the reference's
 # kernel-test levels (tests/test_kernels.py): f64 1e-12, f32 1e-5, bf16
@@ -64,11 +90,52 @@ KERNEL_SHAPES = {
     "usps_step": (9, 3, 640),
     "fleet_step": (4096, 16, 2560),
 }
-SOURCE = "src/repro_torch/kernels/csrc/coded_combine.cu"
+SOURCES = {
+    "coded_admm_update": "src/repro_torch/kernels/csrc/coded_combine.cu",
+    "coded_combine": "src/repro_torch/kernels/csrc/coded_combine.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+}
 REPLACES = {
     "coded_admm_update": "src/repro/kernels/coded_combine.py:104",
     "coded_combine": "src/repro/kernels/coded_combine.py:57",
+    "flash_attention": "src/repro/kernels/flash_attention.py:98",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:63",
 }
+# K3 shapes: (B, S, H, KV, hd, window, dtype). The first two are the
+# qwen3-0.6b prefill step of [serve-qwen3]; hd 256 with one kv head is
+# recurrentgemma-9b's attention shape.
+ATTN_SHAPES = {
+    "qwen3_step": (4, 2048, 16, 8, 128, None, torch.bfloat16),
+    "qwen3_step_f32": (4, 2048, 16, 8, 128, None, torch.float32),
+    "window512": (4, 2048, 16, 8, 128, 512, torch.bfloat16),
+    "ragged1000": (4, 1000, 16, 8, 128, None, torch.bfloat16),
+    "mqa_hd256": (2, 2048, 16, 1, 256, 2048, torch.bfloat16),
+    "hd64_f32": (2, 1000, 8, 2, 64, None, torch.float32),
+}
+# K5 shapes: (B, S, W, with h0). The first is recurrentgemma-9b's prefill
+# step of [serve-rg] (the model passes a zero h0).
+SCAN_SHAPES = {
+    "rg_step": (2, 2048, 4096, True),
+    "ragged1000": (2, 1000, 4096, False),
+}
+# Kernel vs plain version on the card, normwise: K3 in f32 at f32
+# round-off (other summation orders), in bf16 at a few bf16 ulps of the
+# output (both read the same bf16 inputs and score in f32); K5 is the same
+# sequential recurrence, only FMA contraction differs.
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = 1e-5
+# A served model's kernel path against its plain path on the card, in
+# bf16, normwise over the logits and each cache tensor: one rounding
+# difference in the attention or the scan output can move a bf16 value by
+# one ulp (2^-8 relative) and the layers after it carry that on; 5e-2 is
+# about a dozen ulps of the largest value. A wrong kernel (head mapping,
+# mask, state) moves values by their own size.
+SERVE_TOL = 5e-2
+# The port on the card against the port on the CPU in f32, normwise: f32
+# round-off in other summation orders (cuBLAS vs CPU, the kernels vs their
+# plain versions), through at most 3 layers and 3 decode steps.
+CARD_VS_CPU_TOL = 1e-4
 TRACE_FIELDS = ("accuracy", "test_error", "z_err", "final_x", "final_z")
 
 
@@ -92,6 +159,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_us(ev) -> float:
+    """Self device time (µs) of a torch.profiler key-average entry."""
+    dev_us = getattr(ev, "self_device_time_total", None)
+    if dev_us is None:
+        dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+    return dev_us
+
+
 def profiled_device_ms(fn, reps: int, name: str):
     """Mean device time per launch of kernels whose name contains ``name``,
     from torch.profiler; None if the profiler saw no device time."""
@@ -103,11 +178,8 @@ def profiled_device_ms(fn, reps: int, name: str):
         torch.cuda.synchronize()
     total, count = 0.0, 0
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if name in ev.key and dev_us > 0:
-            total += dev_us
+        if name in ev.key and device_us(ev) > 0:
+            total += device_us(ev)
             count += ev.count
     return total / count / 1e3 if count else None
 
@@ -158,15 +230,25 @@ def bound(kind, R, J, n, dtype, alive_rows):
 
 
 def phase_build():
+    """Build every CUDA source at once, one nvcc process each."""
     from repro_torch.kernels import _build
 
+    names = ("coded_combine", "flash_attention", "rglru_scan")
+
+    def timed(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = _build.build("coded_combine")
-    seconds = time.perf_counter() - t0
-    log(f"[build] {lib.name} in {seconds:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build]   {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(timed, names))
+    log(f"[build] {len(names)} sources in {time.perf_counter() - t0:.2f} s")
+    for lib, seconds in built:
+        log(f"[build] {lib.name} in {seconds:.2f} s")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_kernels():
@@ -212,12 +294,6 @@ def phase_kernels():
                 err = max_err(out, want)
                 tol = KERNEL_TOL[want.dtype]
                 scale = max(want.double().abs().max().item(), 1.0)
-                ok = (
-                    out.dtype == want.dtype
-                    and out.shape == want.shape
-                    and bool(torch.isfinite(out).all())
-                    and err <= tol * scale
-                )
                 row = dict(
                     name=name, shape=shape_name, R=R, J=J, n=n,
                     dtype=str(dtype).replace("torch.", ""),
@@ -232,13 +308,7 @@ def phase_kernels():
                 )
                 log("[kernels] " + json.dumps(row))
                 rows.append(row)
-                if not ok:
-                    raise AssertionError(
-                        f"{name} {shape_name} {dtype}: kernel disagrees with "
-                        f"its plain version (max abs err {err:.3e} > "
-                        f"{tol * scale:.3e}, dtype {out.dtype}/{want.dtype}, "
-                        f"finite={bool(torch.isfinite(out).all())})"
-                    )
+                hold(f"{name} {shape_name} {dtype}", out, want, tol)
             del msgs, coeffs, mask, x, y, z, tau, rho, masked
     return rows
 
@@ -341,6 +411,310 @@ def phase_fig3_stragglers():
     )
 
 
+def normwise_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max(max |want|, 1)."""
+    scale = max(want.double().abs().max().item(), 1.0)
+    return max_err(got, want) / scale
+
+
+def hold(label: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """Raise unless ``got`` has ``want``'s shape and dtype, is finite and
+    lies within ``tol`` of it normwise; returns the gap."""
+    got, want = got.detach(), want.detach()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(
+            f"{label}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}"
+        )
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    gap = normwise_gap(got, want.to(got.device))
+    if gap > tol:
+        raise AssertionError(f"{label}: normwise gap {gap:.3e} > {tol:.0e}")
+    return gap
+
+
+def hold_cache(label: str, got: dict, want: dict, tol: float) -> float:
+    if set(got) != set(want) or got["len"] != want["len"]:
+        raise AssertionError(f"{label}: cache keys/len {sorted(got)} {got['len']} "
+                             f"vs {sorted(want)} {want['len']}")
+    return max(
+        hold(f"{label} cache[{k}]", got[k], want[k].to(got[k].device), tol)
+        for k in got if k != "len"
+    )
+
+
+def live_pairs(Sq: int, Skv: int, window, q_offset: int = 0) -> int:
+    """(query, key) pairs inside the causal/window band."""
+    qpos = np.arange(Sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, Skv - 1)
+    lo = np.zeros_like(qpos) if window is None else np.maximum(qpos - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_bound(B, S, H, KV, hd, window, dtype):
+    """(bound_ms, bound_by) of one K3 call: q, k, v read and out written
+    once; 4 hd flops per live (query, key) pair (QK^T and PV) at the peak
+    rate for products of the input type. The softmax's exponentials are
+    not counted."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * es
+    flops = 4 * hd * live_pairs(S, S, window) * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_PRODUCT_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_kernels():
+    """K3 against its plain version (and SDPA's time) at every shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    rows = []
+    for shape_name, (B, S, H, KV, hd, window, dtype) in ATTN_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(S * hd + H)
+        q, k, v = (
+            torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
+            for n in (H, KV, KV)
+        )
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def kern():
+            return flash_attention_kernel(q, k, v, causal=True, window=window)
+
+        def plain():
+            return ref.flash_attention_ref(qt, kt, vt, causal=True, window=window)
+
+        if window is None:
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+        out = kern()
+        want = plain().transpose(1, 2)
+        torch.cuda.synchronize()
+        reps = 5
+        row = dict(
+            name="flash_attention", shape=shape_name, B=B, S=S, H=H, KV=KV, hd=hd,
+            window=window, dtype=str(dtype).replace("torch.", ""),
+            max_abs_err=max_err(out, want), normwise_err=normwise_gap(out, want),
+            tol=ATTN_TOL[dtype],
+            ms=cuda_ms(kern, reps),
+            device_ms=profiled_device_ms(kern, reps, "flash_attention_kernel"),
+            plain_ms=cuda_ms(plain, 2),
+            library_ms=cuda_ms(library, reps),
+        )
+        row["bound_ms"], row["bound_by"] = attention_bound(B, S, H, KV, hd, window, dtype)
+        log("[kernels] " + json.dumps(row))
+        rows.append(row)
+        hold(f"flash_attention {shape_name}", out, want, ATTN_TOL[dtype])
+        del q, k, v, qt, kt, vt, out, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_scan_kernels():
+    """K5 against its plain version at every shape (no single PyTorch call
+    computes the recurrence, so no library time)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+
+    rows = []
+    for shape_name, (B, S, W, with_h0) in SCAN_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(S + W)
+        a = torch.rand(B, S, W, generator=g, device="cuda") * 0.8 + 0.2
+        b = torch.randn(B, S, W, generator=g, device="cuda")
+        h0 = torch.randn(B, W, generator=g, device="cuda") if with_h0 else None
+
+        def kern():
+            return rglru_scan_kernel(a, b, h0)
+
+        def plain():
+            return ref.rglru_scan_ref(a, b, h0)
+
+        (h, h_last), (want_h, want_last) = kern(), plain()
+        torch.cuda.synchronize()
+        nbytes = (3 * B * S * W + (2 if with_h0 else 1) * B * W) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * B * S * W / PEAK_FLOPS[torch.float32] * 1e3
+        row = dict(
+            name="rglru_scan", shape=shape_name, B=B, S=S, W=W, h0=with_h0,
+            dtype="float32", max_abs_err=max(max_err(h, want_h), max_err(h_last, want_last)),
+            normwise_err=normwise_gap(h, want_h), tol=SCAN_TOL,
+            ms=cuda_ms(kern, 20),
+            device_ms=profiled_device_ms(kern, 20, "rglru_scan_kernel"),
+            plain_ms=cuda_ms(plain, 2), library_ms=None,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+        log("[kernels] " + json.dumps(row))
+        rows.append(row)
+        hold(f"rglru_scan {shape_name} h", h, want_h, SCAN_TOL)
+        hold(f"rglru_scan {shape_name} h_last", h_last, want_last, SCAN_TOL)
+        del a, b, h0, h, want_h
+        torch.cuda.empty_cache()
+    return rows
+
+
+def reset_launches():
+    from repro_torch.kernels.coded_combine import LAUNCHES as k12
+    from repro_torch.kernels.flash_attention import LAUNCHES as k3
+    from repro_torch.kernels.rglru_scan import LAUNCHES as k5
+
+    counters = (k12, k3, k5)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    return counters
+
+
+def read_launches(counters) -> dict:
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill):
+    """Serve ``arch`` at full size in bf16 through the entry point, with
+    the launch counts read around the run, then hold the prefill's kernel
+    path against its plain path on the card. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch)
+    seed = 0
+    t0 = time.perf_counter()
+    model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{label}] {cfg.name} {cfg.dtype}: {n_params / 1e9:.3f} B parameters "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+    counters = reset_launches()
+    r = serve(model, batch, prompt_len, new_tokens, seed)
+    launches = read_launches(counters)
+    toks = r["tokens"]
+    log(f"[{label}] batch {batch} prompt {prompt_len} new {new_tokens}: prefill_s "
+        f"{r['prefill_s']:.4f}, decode ms/token {r['decode_s_per_tok'] * 1e3:.3f}, "
+        f"launches {launches}, first tokens {toks[0, :8].tolist()}")
+    want = {k: 0 for k in launches}
+    want[kernel] = per_prefill
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want} (one prefill)")
+    in_vocab = 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab
+    if tuple(toks.shape) != (batch, new_tokens) or not in_vocab:
+        raise AssertionError(f"{label}: tokens {tuple(toks.shape)} out of range")
+
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, seed, "cuda")
+    result = dict(prefill_s=r["prefill_s"], decode_ms_per_token=r["decode_s_per_tok"] * 1e3,
+                  launches=launches)
+    with torch.inference_mode():
+        # Where the time goes, warm, under the profiler (which adds host
+        # time of its own): one prefill, then three decode steps.
+        logits, cache = model.prefill(prompts, extra_slots=new_tokens)
+        result["prefill_profile"] = profile_share(
+            lambda: model.prefill(prompts, extra_slots=new_tokens))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+
+        def decode3():
+            c = cache
+            for _ in range(3):
+                c = model.decode_step(c, tok)[1]
+
+        result["decode_profile"] = profile_share(decode3)
+        del cache
+        log(f"[{label}] profile (warm): " + json.dumps(
+            {k: result[k] for k in ("prefill_profile", "decode_profile")}))
+
+        # The kernel path against the plain path on the same weights: in
+        # the served dtype, then widened to float32, where the two must
+        # agree at f32 round-off through the whole depth.
+        for dtype in (cfg.dtype, "float32"):
+            if dtype == "float32":
+                model.to(torch.float32)  # every weight; exact from bf16
+            kcfg = dataclasses.replace(cfg, dtype=dtype)
+            model.cfg = kcfg
+            logits_k, cache_k = model.prefill(prompts, extra_slots=new_tokens)
+            model.cfg = dataclasses.replace(kcfg, attn_impl="plain", ssm_impl="plain")
+            logits_p, cache_p = model.prefill(prompts, extra_slots=new_tokens)
+            model.cfg = cfg
+            tol = SERVE_TOL if dtype == "bfloat16" else CARD_VS_CPU_TOL
+            gap = hold(f"{label} {dtype} prefill logits kernel vs plain", logits_k, logits_p, tol)
+            cgap = hold_cache(f"{label} {dtype} prefill", cache_k, cache_p, tol)
+            log(f"[{label}] {dtype} prefill, kernel path vs plain path on the card: logits "
+                f"normwise gap {gap:.3e}, worst cache gap {cgap:.3e} (tolerance {tol:.0e})")
+            result[f"{dtype}_logits_gap"], result[f"{dtype}_cache_gap"] = gap, cgap
+            del cache_k, cache_p
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def profile_share(fn, top: int = 5) -> dict:
+    """Wall ms of ``fn`` (synchronised) under torch.profiler, the device's
+    busy ms (sum of its kernels' and copies' device time) and the
+    ``top`` kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = []
+    for ev in prof.key_averages():
+        if device_us(ev) > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.append((device_us(ev) / 1e3, ev.count, ev.key[:70]))
+    busy = sum(ms for ms, _, _ in by_name)
+    by_name.sort(reverse=True)
+    return dict(wall_ms=wall, device_busy_ms=busy, busy_share=busy / wall,
+                top=[dict(name=n, ms=ms, launches=c) for ms, c, n in by_name[:top]])
+
+
+def phase_card_vs_cpu():
+    """The port on the card (kernels) against the port on the CPU (plain
+    versions), same weights, prefill then 3 teacher-forced decode steps."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import get_model
+
+    cases = {
+        "qwen3-0.6b (2 layers, f32)": (
+            dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2, dtype="float32"), 1, 256,
+        ),
+        "recurrentgemma smoke": (get_smoke_config("recurrentgemma-9b"), 2, 96),
+    }
+    for label, (cfg, B, S) in cases.items():
+        cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        gpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).to("cuda")
+        rng = np.random.default_rng(2)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+        counters = reset_launches()
+        with torch.inference_mode():
+            lg, cg = gpu.prefill(tokens.cuda(), extra_slots=3)
+            lc, cc = cpu.prefill(tokens, extra_slots=3)
+            worst = hold(f"{label} prefill logits", lg, lc.cuda(), CARD_VS_CPU_TOL)
+            worst = max(worst, hold_cache(f"{label} prefill", cg, cc, CARD_VS_CPU_TOL))
+            for step in range(3):
+                tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)))
+                lg, cg = gpu.decode_step(cg, tok.cuda())
+                lc, cc = cpu.decode_step(cc, tok)
+                worst = max(worst, hold(f"{label} decode {step}", lg, lc.cuda(), CARD_VS_CPU_TOL))
+            worst = max(worst, hold_cache(f"{label} after decode", cg, cc, CARD_VS_CPU_TOL))
+        launches = read_launches(counters)
+        kernel = "flash_attention" if cfg.family == "dense" else "rglru_scan"
+        if launches[kernel] == 0:
+            raise AssertionError(f"{label}: the card run launched no {kernel}")
+        log(f"[card-vs-cpu] {label}: B {B} S {S}, launches {launches}, worst normwise "
+            f"gap {worst:.3e} (tolerance {CARD_VS_CPU_TOL:.0e})")
+        del gpu, cg
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print(
@@ -363,23 +737,36 @@ def main() -> int:
     )
     phase_build()
     rows = phase_kernels()
+    rows += phase_attention_kernels()
+    rows += phase_scan_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()
+    qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28)
+    rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26)
+    phase_card_vs_cpu()
 
+    launches["flash_attention"] = qwen["launches"]["flash_attention"]
+    launches["rglru_scan"] = rg["launches"]["rglru_scan"]
+    # Each kernel's row in the summary: its main path's shape and dtype.
+    main_shape = {
+        "coded_admm_update": ("fig5_step", "float64"),
+        "coded_combine": ("fig5_step", "float64"),
+        "flash_attention": ("qwen3_step", "bfloat16"),
+        "rglru_scan": ("rg_step", "float32"),
+    }
     main_row = {
-        r["name"]: r for r in rows
-        if r["shape"] == "fig5_step" and r["dtype"] == "float64"
+        r["name"]: r for r in rows if (r["shape"], r["dtype"]) == main_shape[r["name"]]
     }
     kernels = [
         dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[name],
             **{k: main_row[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "device_ms", "shape", "dtype",
             )},
         )
-        for name in ("coded_admm_update", "coded_combine")
+        for name in SOURCES
     ]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

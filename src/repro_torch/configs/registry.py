@@ -1,0 +1,53 @@
+"""Architecture registry of the port (``get_config``, ``get_smoke_config``).
+
+Counterpart of `repro.configs.registry` without the dry-run's abstract
+input specs. ``ARCHS`` lists the ported archs only; an arch that the
+reference has but the port does not yet raises ``KeyError`` naming
+ROADMAP's queue.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+from .shapes import SHAPES as SHAPES  # re-exported via repro_torch.configs
+
+_ARCH_MODULES = {
+    "qwen3-0.6b": "qwen3_0_6b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+}
+# The reference's other archs, and the family each waits for.
+_NOT_PORTED = {
+    "mixtral-8x22b": "moe",
+    "phi3.5-moe-42b-a6.6b": "moe",
+    "llama3-405b": "dense (config not ported)",
+    "stablelm-1.6b": "dense (config not ported)",
+    "mamba2-1.3b": "ssm",
+    "qwen2-vl-72b": "vlm",
+    "internlm2-20b": "dense (config not ported)",
+    "whisper-medium": "audio",
+}
+
+ARCHS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise KeyError(
+            f"arch {arch!r} ({_NOT_PORTED[arch]}) is not ported to "
+            f"repro_torch yet: see ROADMAP.md Queue 1, item 15; ported: "
+            f"{list(ARCHS)}"
+        )
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

@@ -1,17 +1,21 @@
 """Hand-written Hopper kernels for the compute hot-spots, with their plain
 PyTorch versions.
 
-  coded_combine / coded_admm_update — fused gradient decode (+ eq. 5a
-      x-update): the csI-ADMM agent-side hot spot (memory-bound reduce).
-      CUDA C++ for sm_90a in ``csrc/coded_combine.cu``.
+  coded_combine / coded_admm_update (K1, K2) — fused gradient decode
+      (+ eq. 5a x-update): the csI-ADMM agent-side hot spot (memory-bound
+      reduce). ``csrc/coded_combine.cu``.
+  flash_attention (K3) — causal / sliding-window / GQA online-softmax
+      attention of every transformer prefill. ``csrc/flash_attention.cu``.
+  rglru_scan (K5) — the RG-LRU linear recurrence of every RecurrentGemma
+      prefill. ``csrc/rglru_scan.cu``.
 
-`ops` holds the public entry points (CUDA tensors -> kernel, CPU tensors
--> plain version); `ref` the plain PyTorch versions; `coded_combine` the
-ctypes bindings with their launch counters; `_build` the nvcc build. The
-reference's model kernels (flash attention, SSD scan, RG-LRU scan) are not
-ported yet (ROADMAP Queue 2, K3-K5).
+All are CUDA C++ for sm_90a. `ops` holds the public entry points (CUDA
+tensors -> kernel, CPU tensors -> plain version); `ref` the plain PyTorch
+versions; `coded_combine`, `flash_attention` and `rglru_scan` the ctypes
+bindings with their launch counters; `_build` the nvcc build. The SSD scan
+(K4) is not ported yet (ROADMAP Queue 2).
 """
 
-from .ops import coded_admm_update, coded_combine
+from .ops import coded_admm_update, coded_combine, flash_attention, rglru_scan
 
-__all__ = ["coded_combine", "coded_admm_update"]
+__all__ = ["coded_combine", "coded_admm_update", "flash_attention", "rglru_scan"]

@@ -1,36 +1,45 @@
-"""Public entry points of the coded-combine kernels, dispatched by device.
+"""Public entry points of the kernels, dispatched by device.
 
-Counterpart of the coded half of `repro.kernels.ops`. A CUDA tensor goes to
-the hand-written kernel (`repro_torch.kernels.coded_combine`) or the call
-raises; a CPU tensor goes to the plain PyTorch version
+Counterpart of `repro.kernels.ops` (all but ``ssd_scan``, whose kernel is
+not ported yet). A CUDA tensor goes to the hand-written kernel or the
+call raises; a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); any other device raises. There is no fallback
 from one to the other.
 
-Unlike the reference, nothing is padded: the TPU kernel needs 128-lane
-tiles (hence ``fit_block_n``/``_pad_to`` there), while the CUDA kernel masks
-its own ragged edge, so padding would only add (J + 3) * n of copies per
-step. Shapes carry an explicit runs axis: msgs (R, J, n), coeffs/mask
-(R, J), x/y/z (R, n), tau/rho (R,).
+Unlike the reference, nothing is padded or re-tiled: the TPU kernels need
+128-lane tiles and block sizes that divide the sequence (hence
+``fit_block_n``, ``_pad_to`` and the block halving there), while the CUDA
+kernels mask their own ragged edges. The coded-combine shapes carry an
+explicit runs axis: msgs (R, J, n), coeffs/mask (R, J), x/y/z (R, n),
+tau/rho (R,).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .coded_combine import coded_admm_update_kernel, coded_combine_kernel
-from .ref import coded_admm_update_ref, coded_combine_ref, compute_dtype
+from .flash_attention import flash_attention_kernel
+from .ref import (
+    coded_admm_update_ref,
+    coded_combine_ref,
+    compute_dtype,
+    flash_attention_ref,
+    rglru_scan_ref,
+)
+from .rglru_scan import rglru_scan_kernel
 
-__all__ = ["coded_combine", "coded_admm_update"]
+__all__ = ["coded_combine", "coded_admm_update", "flash_attention", "rglru_scan"]
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
+def _on_cuda(t: torch.Tensor, what: str = "coded-combine") -> bool:
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no coded-combine path for device {t.device}")
+    raise ValueError(f"no {what} path for device {t.device}")
 
 
 def _in_acc_dtype(ct: torch.dtype, coeffs, mask, *scalars):
@@ -84,3 +93,43 @@ def coded_admm_update(
         msgs.contiguous(), coeffs, mask, x.contiguous(), y.contiguous(),
         z.contiguous(), tau, rho,
     )
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd) — model layout
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Flash attention in the model's (B, S, H, hd) layout, GQA-aware
+    (query head h reads kv head h * KV // H). Query positions are
+    ``arange(Sq) + q_offset``; every query row must keep at least one live
+    key (ROADMAP Queue 3). Output in q's dtype."""
+    if not _on_cuda(q, "flash-attention"):
+        out = flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, q_offset=q_offset,
+        )
+        return out.transpose(1, 2)
+    return flash_attention_kernel(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        causal=causal, window=window, q_offset=q_offset,
+    )
+
+
+def rglru_scan(
+    a: torch.Tensor,  # (B, S, W)
+    b: torch.Tensor,  # (B, S, W)
+    h0: Optional[torch.Tensor] = None,  # (B, W)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Linear recurrence h_t = a_t h_{t-1} + b_t (RG-LRU inner scan) in
+    float32 from h0 (zeros when None). Returns (h (B, S, W), h_last (B, W))."""
+    if not _on_cuda(a, "rglru-scan"):
+        return rglru_scan_ref(a, b, h0)
+    f32 = [t.to(torch.float32).contiguous() for t in (a, b)]
+    if h0 is not None:
+        h0 = h0.to(torch.float32).contiguous()
+    return rglru_scan_kernel(*f32, h0)

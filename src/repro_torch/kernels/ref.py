@@ -1,20 +1,30 @@
-"""Plain PyTorch versions of the coded-combine kernels (the CPU path and
-the yardstick the CUDA kernels are held against).
+"""Plain PyTorch versions of the kernels (the CPU path and the yardstick
+the CUDA kernels are held against).
 
-Counterparts of `repro.kernels.ref.coded_combine_ref` and
-`coded_admm_update_ref`, with an explicit leading runs axis R in place of
-the reference's ``vmap``. Same semantics, including the accumulation
-dtype: ``promote(dtype, float32)``, so bf16 and f32 accumulate in f32 and
-f64 stays f64.
+Counterparts of `repro.kernels.ref`:
+
+- ``coded_combine_ref`` / ``coded_admm_update_ref``, with an explicit
+  leading runs axis R in place of the reference's ``vmap``. Same
+  semantics, including the accumulation dtype ``promote(dtype, float32)``:
+  bf16 and f32 accumulate in f32, f64 stays f64.
+- ``flash_attention_ref``: dense attention in the kernel's (B, H, S, hd)
+  layout, GQA by head mapping, float32 scores.
+- ``rglru_scan_ref``: the sequential linear recurrence in float32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["compute_dtype", "coded_combine_ref", "coded_admm_update_ref"]
+__all__ = [
+    "compute_dtype",
+    "coded_combine_ref",
+    "coded_admm_update_ref",
+    "flash_attention_ref",
+    "rglru_scan_ref",
+]
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -61,3 +71,58 @@ def coded_admm_update_ref(
     r = rho.to(ct)[:, None]
     num = t * x.to(ct) + r * z.to(ct) + y.to(ct) - G
     return (num / (r + t)).to(x.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, H, Sq, hd)
+    k: torch.Tensor,  # (B, KV, Skv, hd)
+    v: torch.Tensor,  # (B, KV, Skv, hd)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Dense attention with GQA head mapping h -> h * KV // H; scores and
+    softmax in float32, masked scores -1e30, output in q's dtype.
+
+    A query row with no live key gives the mean of v here; the kernel
+    gives something else there (ROADMAP Queue 3). Callers keep at least
+    one live key per row, as causal self-attention does."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    kv_idx = torch.arange(H, device=q.device) * KV // H
+    kx = k[:, kv_idx]  # (B, H, Skv, hd)
+    vx = v[:, kv_idx]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) / torch.sqrt(
+        torch.tensor(float(hd))
+    ).item()
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
+    return o.to(q.dtype)
+
+
+def rglru_scan_ref(
+    a: torch.Tensor,  # (B, S, W) decay in (0, 1]
+    b: torch.Tensor,  # (B, S, W) input term
+    h0: Optional[torch.Tensor] = None,  # (B, W)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t in float32, step by step. Returns
+    (h_seq (B, S, W) f32, h_last (B, W) f32)."""
+    B, S, W = a.shape
+    h = (
+        torch.zeros((B, W), dtype=torch.float32, device=a.device)
+        if h0 is None
+        else h0.float()
+    )
+    hs = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        hs[:, t] = h
+    return hs, h

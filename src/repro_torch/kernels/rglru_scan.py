@@ -1,0 +1,78 @@
+"""Python binding of the RG-LRU scan CUDA kernel (K5).
+
+Counterpart of the TPU kernel `repro.kernels.rglru_scan`
+(``rglru_scan_kernel``); the CUDA source, its bound and its design are in
+``csrc/rglru_scan.cu``. It computes h_t = a_t * h_{t-1} + b_t over
+(B, S, W) float32 inputs from an initial state h0 (B, W) or zeros.
+
+The wrapper only launches: contiguous float32 CUDA tensors, or it raises.
+`repro_torch.kernels.ops.rglru_scan` is the entry point that sends CPU
+tensors to the plain version. ``LAUNCHES`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["LAUNCHES", "rglru_scan_kernel"]
+
+LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rglru_scan")
+    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I64, _P]
+    lib.rglru_scan_launch.restype = _I
+    lib.rglru_scan_error_string.argtypes = [_I]
+    lib.rglru_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rglru_scan_kernel(
+    a: torch.Tensor,  # (B, S, W) float32
+    b: torch.Tensor,  # (B, S, W) float32
+    h0: Optional[torch.Tensor] = None,  # (B, W) float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (h (B, S, W) f32, h_last (B, W) f32)."""
+    if a.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got a on {a.device}")
+    if a.dim() != 3:
+        raise ValueError(f"a must be (B, S, W), got shape {tuple(a.shape)}")
+    B, S, W = a.shape
+    operands = [("a", a, (B, S, W)), ("b", b, (B, S, W))]
+    if h0 is not None:
+        operands.append(("h0", h0, (B, W)))
+    for name, t, shape in operands:
+        if (
+            tuple(t.shape) != shape
+            or t.dtype != torch.float32
+            or t.device != a.device
+            or not t.is_contiguous()
+        ):
+            raise ValueError(
+                f"{name}: want a contiguous {shape} float32 tensor on "
+                f"{a.device}, got {tuple(t.shape)} {t.dtype} on {t.device} "
+                f"contiguous={t.is_contiguous()}"
+            )
+    h = torch.empty_like(a)
+    h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _lib().rglru_scan_launch(
+            a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+            h.data_ptr(), h_last.data_ptr(), B, S, W, stream,
+        )
+    if err != 0:
+        msg = _lib().rglru_scan_error_string(err).decode()
+        raise RuntimeError(f"rglru_scan launch failed: CUDA error {err} ({msg})")
+    LAUNCHES["rglru_scan"] += 1
+    return h, h_last

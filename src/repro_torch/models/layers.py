@@ -1,0 +1,309 @@
+"""Shared neural layers (port of `repro.models.layers`).
+
+Plain PyTorch functions over tensors, with the reference's shape
+conventions:
+
+  B batch, S sequence, D d_model, H query heads, KV kv heads, hd head_dim,
+  F d_ff, W attention window.
+
+and its numerics: norms and RoPE compute in float32 and cast back, masked
+scores take ``NEG_INF = -1e30``, attention scores and softmax run in
+float32, and decode attention rounds the scaled query and the
+probabilities to the cache's storage dtype before float32-accumulated
+products. Weights are stored ``(in, out)`` and applied as ``x @ W``.
+
+The flash-attention kernel lives in `repro_torch.kernels`; the functions
+here are the plain paths (``attn_impl="plain"``) and decode, which no
+kernel serves.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "NEG_INF",
+    "ParamModule",
+    "rmsnorm",
+    "layernorm",
+    "rope_frequencies",
+    "apply_rope",
+    "_expand_kv",
+    "naive_attention",
+    "blocked_attention",
+    "decode_attention",
+    "mlp_apply",
+]
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+# name -> (shape, "normal" | "const", scale or value, dtype)
+Spec = Dict[str, Tuple[tuple, str, float, torch.dtype]]
+
+
+def _normal(shape, scale: float, dt: torch.dtype):
+    return (tuple(shape), "normal", scale, dt)
+
+
+def _const(shape, value: float, dt: torch.dtype):
+    return (tuple(shape), "const", value, dt)
+
+
+class ParamModule(nn.Module):
+    """A module whose parameters are declared by shape and init rule.
+
+    Parameters are created empty on ``device`` (no gradient: this is the
+    serving path) and filled by ``init_`` one tensor at a time, drawn in
+    float32 on the device and then cast, so a 10 B-parameter model never
+    holds a float32 copy of more than one tensor. The draws follow the
+    reference's scales, not its random bits."""
+
+    def __init__(self, spec: Spec, device) -> None:
+        super().__init__()
+        self._spec = spec
+        for name, (shape, _, _, dtype) in spec.items():
+            self.register_parameter(
+                name,
+                nn.Parameter(
+                    torch.empty(shape, dtype=dtype, device=device),
+                    requires_grad=False,
+                ),
+            )
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "ParamModule":
+        for name, (shape, kind, value, _) in self._spec.items():
+            p = getattr(self, name)
+            if kind == "normal":
+                w = torch.randn(
+                    shape, generator=generator, dtype=torch.float32, device=p.device
+                )
+                p.copy_(w.mul_(value))
+            else:
+                p.fill_(value)
+        return self
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_frequencies(
+    rot_dim: int, theta: float, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables. positions: (..., S) int -> (..., S, rot_dim/2)."""
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=positions.device)
+    inv = 1.0 / (theta ** (exps / rot_dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(
+    x: torch.Tensor,  # (B, S, H, hd)
+    positions: torch.Tensor,  # (B, S) or (3, B, S) for M-RoPE
+    theta: float,
+    fraction: float = 1.0,
+    mrope_sections: Optional[Tuple[int, int, int]] = None,
+) -> torch.Tensor:
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+
+    if mrope_sections is not None:
+        # Qwen2-VL M-RoPE: the rot/2 frequency slots are split into three
+        # sections driven by (temporal, height, width) position ids.
+        sec = tuple(mrope_sections)
+        if sum(sec) != rot // 2:
+            raise ValueError(f"mrope sections {sec} do not sum to {rot // 2}")
+        cos3, sin3 = rope_frequencies(rot, theta, positions)  # (3,B,S,rot/2)
+        cos = torch.cat([torch.split(cos3[i], sec, dim=-1)[i] for i in range(3)], dim=-1)
+        sin = torch.cat([torch.split(sin3[i], sec, dim=-1)[i] for i in range(3)], dim=-1)
+    else:
+        cos, sin = rope_frequencies(rot, theta, positions)  # (B,S,rot/2)
+
+    cos = cos[..., None, :]  # (B, S, 1, rot/2)
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.cat([y1, y2], dim=-1).to(x.dtype)
+    return torch.cat([y, x_pass], dim=-1) if rot < hd else y
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+
+def _expand_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*q_per_kv, hd) by repeat (GQA): query head
+    h reads kv head h // q_per_kv."""
+    if q_per_kv == 1:
+        return k
+    return torch.repeat_interleave(k, q_per_kv, dim=2)
+
+
+def _scale(hd: int) -> float:
+    """1/sqrt(hd) rounded to float32, as the reference computes it."""
+    return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+
+
+def _band(qpos, kpos, causal: bool, window: Optional[int]) -> torch.Tensor:
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def naive_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, H, hd)  (already GQA-expanded)
+    v: torch.Tensor,
+    causal: bool,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-matrix attention (short sequences)."""
+    Sq, hd = q.shape[1], q.shape[3]
+    Skv = k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev) + q_offset
+    kpos = torch.arange(Skv, device=dev)
+    mask = _band(qpos, kpos, causal, window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def blocked_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, H, hd)  (already GQA-expanded)
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = 512,
+    block_kv: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention block by block (O(S * block) memory).
+
+    Like the reference, every block is computed (masked), including those
+    wholly outside the causal/window band."""
+    B, S, H, hd = q.shape
+    if S % block_q or S % block_kv:
+        raise ValueError(f"S={S} is not a multiple of blocks {block_q}/{block_kv}")
+    nq, nk = S // block_q, S // block_kv
+    scale = _scale(hd)
+    dev = q.device
+    qb = q.reshape(B, nq, block_q, H, hd).permute(1, 0, 3, 2, 4)  # (nq,B,H,bq,hd)
+    kb = k.reshape(B, nk, block_kv, H, hd).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, nk, block_kv, H, hd).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(nq):
+        q32 = qb[qi].float() * scale
+        qpos = qi * block_q + torch.arange(block_q, device=dev)
+        acc = torch.zeros((B, H, block_q, hd), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, block_q), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, block_q), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kpos = ki * block_kv + torch.arange(block_kv, device=dev)
+            s = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki].float())
+            s = torch.where(_band(qpos, kpos, causal, window)[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vb[ki].float()
+            )
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.stack(outs)  # (nq, B, H, bq, hd)
+    out = out.permute(1, 0, 3, 2, 4).reshape(B, S, H, hd)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k_cache: torch.Tensor,  # (B, C, KV, hd) — C = cache length (maybe ring)
+    v_cache: torch.Tensor,
+    valid: torch.Tensor,  # (B, C) bool — which cache slots participate
+) -> torch.Tensor:
+    """Single-token decode attention over a (possibly ring-buffered) cache.
+
+    The reference's numerics: the scaled query and the probabilities are
+    rounded to the cache's storage dtype, the products accumulate in
+    float32. A product of two bf16 values is exact in float32, so the
+    cache is widened to float32 for the products (one copy per layer and
+    step; exact, not cheap — decode is plain PyTorch in this port)."""
+    B, C, KV, hd = k_cache.shape
+    H = q.shape[2]
+    # Heads are group-major: q head h belongs to kv head h // (H/KV).
+    qg = q[:, 0].reshape(B, KV, H // KV, hd)  # (B, KV, qpk, hd)
+    qs = (qg.float() * _scale(hd)).to(k_cache.dtype)
+    s = torch.einsum("bgqd,bcgd->bgqc", qs.float(), k_cache.float())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum(
+        "bgqc,bcgd->bgqd", p.to(v_cache.dtype).float(), v_cache.float()
+    )
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(x: torch.Tensor, p, act: str) -> torch.Tensor:
+    """Gated or plain MLP. ``p`` holds w_gate/w_up/w_down (gated) or
+    w_in/w_out as attributes."""
+    if act in ("swiglu", "geglu"):
+        g = x @ p.w_gate
+        u = x @ p.w_up
+        h = (F.silu(g) if act == "swiglu" else gelu(g)) * u
+        return h @ p.w_down
+    h = gelu(x @ p.w_in)
+    return h @ p.w_out

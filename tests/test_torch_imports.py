@@ -27,8 +27,13 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         # importing loads (and builds) no kernel
-        lib = sys.modules["repro_torch.kernels.coded_combine"]._lib
-        assert lib.cache_info().currsize == 0
+        for mod in ("coded_combine", "flash_attention", "rglru_scan"):
+            lib = sys.modules["repro_torch.kernels." + mod]._lib
+            assert lib.cache_info().currsize == 0, mod
+        for mod in ("models.transformer", "models.rglru", "models.params",
+                    "configs.qwen3_0_6b", "configs.recurrentgemma_9b",
+                    "launch.serve"):
+            assert "repro_torch." + mod in names, mod
         print(len(names))
         """
     )

@@ -1,4 +1,4 @@
-"""The port's coded-combine kernels against the reference's.
+"""The port's kernels against the reference's.
 
 On the CPU the port's `ops` send tensors to the plain PyTorch versions
 (`repro_torch.kernels.ref`); these are held against `repro.kernels.ref`
@@ -9,6 +9,17 @@ reference's own f64 parity bound), 1e-5 in f32 and 2e-2 in bf16 (its
 f32/bf16 kernel tolerances). f64 runs on the x64 switch set by
 ``tests/conftest.py``. The CUDA kernels themselves are compared with the
 plain versions on the card in ``tests/test_torch_kernels_gpu.py``.
+
+Flash attention (K3) and the RG-LRU scan (K5) are held the same way:
+``ops.flash_attention`` and ``ref.flash_attention_ref`` against
+`repro.kernels.ops.flash_attention` (Pallas, interpret mode, small
+blocks) and its oracle over GQA, MQA, a sliding window, a query offset
+that leaves every row a live key, and ragged lengths; ``ops.rglru_scan``
+against `repro.kernels.ops.rglru_scan` with and without h0. Tolerances:
+float32 attention 1e-5 (scores and softmax in f32 on both sides, other
+summation orders); bf16 attention 2e-2 (a few bf16 ulps of the bf16
+output); the scan 1e-6 * S normwise (the reference's doubling scan and
+the port's step-by-step loop round differently, error growing with S).
 """
 
 import jax.numpy as jnp
@@ -25,6 +36,10 @@ from repro_torch.kernels.coded_combine import (
     coded_admm_update_kernel,
     coded_combine_kernel,
 )
+from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
+from repro_torch.kernels.rglru_scan import rglru_scan_kernel
 
 TOL = {
     "float32": dict(rtol=1e-5, atol=1e-5),
@@ -218,3 +233,110 @@ def test_cpu_tensors_take_the_plain_version():
         coded_admm_update_kernel(m, c, torch.ones(2, 3), x, y, z, tau, rho)
     with pytest.raises(ValueError, match="no coded-combine path"):
         t_ops.coded_combine(m.to("meta"), c.to("meta"))
+
+
+
+# ---- flash attention (K3) -------------------------------------------------
+
+# (B, H, KV, Sq, Skv, hd, window, q_offset): GQA, MQA with a window, a
+# query offset into a longer key sequence (every query sees its own key),
+# ragged lengths, and a window wider than the sequence.
+FA_CASES = [
+    (2, 4, 2, 32, 32, 32, None, 0),
+    (1, 4, 1, 48, 48, 64, 16, 0),
+    (2, 2, 2, 16, 48, 32, None, 32),
+    (1, 4, 2, 37, 37, 32, 9, 0),
+    (1, 2, 1, 24, 40, 64, 12, 16),
+    (1, 8, 2, 40, 40, 16, 100, 0),
+]
+FA_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _qkv(B, H, KV, Sq, Skv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.standard_normal((B, Sq, H, hd)), dtype)
+    k = _pair(rng.standard_normal((B, Skv, KV, hd)), dtype)
+    v = _pair(rng.standard_normal((B, Skv, KV, hd)), dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,window,q_offset", FA_CASES)
+def test_flash_attention_matches_reference(B, H, KV, Sq, Skv, hd, window, q_offset, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(B, H, KV, Sq, Skv, hd, dtype, Sq * H + Skv)
+    before = dict(FA_LAUNCHES)
+    out = t_ops.flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset)
+    assert FA_LAUNCHES == before  # CPU tensors: the plain version
+    assert out.shape == (B, Sq, H, hd) and out.dtype == TORCH[dtype]
+    ref = t_ref.flash_attention_ref(
+        tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
+        causal=True, window=window, q_offset=q_offset,
+    )
+    assert torch.equal(out, ref.transpose(1, 2))
+    want_ops = r_ops.flash_attention(
+        jq, jk, jv, causal=True, window=window, q_offset=q_offset, block_q=8, block_kv=8,
+    )
+    want_ref = r_ref.flash_attention_ref(
+        jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3), jv.transpose(0, 2, 1, 3),
+        causal=True, window=window, q_offset=q_offset,
+    ).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(out), _np(want_ops), **FA_TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(want_ref), **FA_TOL[dtype])
+
+
+def test_flash_attention_non_causal_and_f32_scores_from_bf16():
+    """Non-causal attention; and bf16 inputs give the f32-scored result
+    rounded once (what a bf16-accumulating kernel would miss)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, 2, 1, 20, 28, 32, "float32", 5)
+    out = t_ops.flash_attention(tq, tk, tv, causal=False)
+    want = r_ops.flash_attention(jq, jk, jv, causal=False, block_q=4, block_kv=4)
+    np.testing.assert_allclose(_np(out), _np(want), **FA_TOL["float32"])
+    out16 = t_ops.flash_attention(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(), causal=True)
+    want16 = t_ops.flash_attention(
+        tq.bfloat16().float(), tk.bfloat16().float(), tv.bfloat16().float(), causal=True
+    ).bfloat16()
+    assert torch.equal(out16, want16)
+
+
+# ---- RG-LRU scan (K5) -----------------------------------------------------
+
+
+def _scan_inputs(B, S, W, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.2, 1.0, (B, S, W)).astype(np.float32)  # decays in (0, 1]
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    h0 = rng.standard_normal((B, W)).astype(np.float32)
+    return a, b, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(2, 64, 128), (1, 37, 48), (3, 256, 16)])
+def test_rglru_scan_matches_reference(B, S, W, with_h0):
+    a, b, h0 = _scan_inputs(B, S, W, S * W)
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    before = dict(RG_LAUNCHES)
+    h, h_last = t_ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b), th0)
+    assert RG_LAUNCHES == before
+    assert h.shape == (B, S, W) and h_last.shape == (B, W)
+    assert h.dtype == h_last.dtype == torch.float32
+    assert torch.equal(h[:, -1], h_last)
+    jh0 = jnp.asarray(h0) if with_h0 else None
+    wh, wlast = r_ops.rglru_scan(jnp.asarray(a), jnp.asarray(b), jh0, block_s=16, block_w=16)
+    rh, rlast = r_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b), jh0)
+    tol = 1e-6 * S
+    for got, want in ((h, wh), (h_last, wlast), (h, rh), (h_last, rlast)):
+        gap = np.abs(_np(got) - _np(want)).max()
+        assert gap <= tol * max(np.abs(_np(want)).max(), 1.0), gap
+
+
+def test_new_kernel_wrappers_refuse_cpu_and_other_devices():
+    t = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_attention_kernel(t, t, t)
+    a = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rglru_scan_kernel(a, a)
+    with pytest.raises(ValueError, match="no flash-attention path"):
+        t_ops.flash_attention(t.to("meta"), t.to("meta"), t.to("meta"))
+    with pytest.raises(ValueError, match="no rglru-scan path"):
+        t_ops.rglru_scan(a.to("meta"), a.to("meta"))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (K1, K2, K3, K5) against their plain PyTorch
+versions, on a card.
 
 Marked ``gpu``: each test skips without a CUDA device (the kernels have no
 CPU or interpret mode). This file imports neither JAX nor `repro`, so it
@@ -76,3 +77,59 @@ def test_cuda_kernels_match_plain_version(cuda, dtype, R, J, n):
     np.testing.assert_allclose(
         _np(got_c), _np(want_c), **TOL[str(ct).removeprefix("torch.")]
     )
+
+
+FA_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Skv,hd,window,q_offset",
+    [
+        (2, 16, 8, 256, 256, 128, None, 0),  # qwen3 heads
+        (1, 16, 1, 200, 200, 256, 64, 0),  # recurrentgemma MQA, window
+        (2, 4, 2, 67, 131, 64, None, 64),  # ragged, offset into the keys
+        (1, 8, 8, 100, 100, 128, 1, 0),  # window 1: the diagonal only
+    ],
+)
+def test_flash_attention_kernel_matches_plain_version(
+    cuda, dtype, B, H, KV, Sq, Skv, hd, window, q_offset
+):
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+
+    g = torch.Generator(device="cpu").manual_seed(Sq * hd)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(TORCH[dtype]).to(cuda)
+    k = torch.randn(B, Skv, KV, hd, generator=g).to(TORCH[dtype]).to(cuda)
+    v = torch.randn(B, Skv, KV, hd, generator=g).to(TORCH[dtype]).to(cuda)
+    before = FA["flash_attention"]
+    got = t_ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert FA["flash_attention"] == before + 1
+    want = t_ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=window, q_offset=q_offset,
+    ).transpose(1, 2)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(_np(got), _np(want), **FA_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(2, 512, 4096), (1, 1000, 300)])
+def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, W, with_h0):
+    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
+
+    g = torch.Generator(device="cpu").manual_seed(S + W)
+    a = (torch.rand(B, S, W, generator=g) * 0.8 + 0.2).to(cuda)
+    b = torch.randn(B, S, W, generator=g).to(cuda)
+    h0 = torch.randn(B, W, generator=g).to(cuda) if with_h0 else None
+    before = RG["rglru_scan"]
+    h, h_last = t_ops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert RG["rglru_scan"] == before + 1
+    want_h, want_last = t_ref.rglru_scan_ref(a, b, h0)
+    # Same sequential recurrence; only FMA contraction differs.
+    np.testing.assert_allclose(_np(h), _np(want_h), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(h_last), _np(want_last), rtol=1e-5, atol=1e-5)
