@@ -24,7 +24,11 @@ Phases (any failure raises, exits non-zero and prints no result):
               a 512 window, at a ragged S = 1000, and at the MQA hd 256 and
               hd 64 instances, against `scaled_dot_product_attention`; K5
               (RG-LRU scan) at the recurrentgemma-9b prefill step (B 2,
-              S 2048, W 4096) with h0 and at a ragged S = 1000.
+              S 2048, W 4096) with h0 and at a ragged S = 1000; K4 (SSD
+              scan) at the mamba2-1.3b training step (B 2, S 4096, H 64,
+              P 64, N 128, chunk 256) in bf16 and f32, at a ragged
+              S = 1000 and at a small shape, against the sequential
+              recurrence in f64 (exact), in f32, and the chunked form.
 3. fig5     — the paper's fig5 sweep at its registry defaults (1200 iters,
               S in {0,1,2,3} x 4 seeds = 16 runs) through `run_sweep` on
               the GPU in f64, held per run against the same sweep on the
@@ -41,10 +45,22 @@ Phases (any failure raises, exits non-zero and prints no result):
               bf16 and with the model widened to f32.
 6. serve-rg — the same for recurrentgemma-9b (batch 2, prompt 2048, 16
               new tokens): K5 launches once per recurrent layer (26).
-7. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
+7. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
+              parameters), batch 2 x 4096 tokens, remat "full": the loss
+              and every parameter's gradient on the kernel path (K4) held
+              against the plain path (``ssd_chunked``) from the same
+              weights and batch, in bf16 and widened to f32, with K4's
+              launches counted (2 per layer: forward and recomputation;
+              none on the plain path); then 5 Adam steps through the
+              training entry point (`repro_torch.launch.train.main`) in
+              bf16, with per-step losses, the warm step time, peak device
+              memory and a profile of one more warm step.
+8. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
               prompt 256) and the recurrentgemma smoke config: prefill
               and 3 decode steps on the card (kernels) held against the
-              port on the CPU (plain versions), logits and caches.
+              port on the CPU (plain versions), logits and caches; and
+              3 training steps of the mamba2 smoke config in f32, losses
+              and final parameters.
 
 Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 card's name and power limit; the last line is
@@ -95,12 +111,14 @@ SOURCES = {
     "coded_combine": "src/repro_torch/kernels/csrc/coded_combine.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "coded_admm_update": "src/repro/kernels/coded_combine.py:104",
     "coded_combine": "src/repro/kernels/coded_combine.py:57",
     "flash_attention": "src/repro/kernels/flash_attention.py:98",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:63",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:79",
 }
 # K3 shapes: (B, S, H, KV, hd, window, dtype). The first two are the
 # qwen3-0.6b prefill step of [serve-qwen3]; hd 256 with one kv head is
@@ -125,6 +143,35 @@ SCAN_SHAPES = {
 # sequential recurrence, only FMA contraction differs.
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 1e-5
+# K4 shapes: (B, S, H, P, N, chunk, dtype). The first two are the
+# mamba2-1.3b training step of [train-mamba2].
+SSD_SHAPES = {
+    "train_step": (2, 4096, 64, 64, 128, 256, torch.bfloat16),
+    "train_step_f32": (2, 4096, 64, 64, 128, 256, torch.float32),
+    "ragged1000": (2, 1000, 64, 64, 128, 256, torch.bfloat16),
+    "small": (1, 200, 2, 16, 32, 64, torch.float32),
+}
+# K4 against the exact answer (the sequential recurrence in f64 on the same
+# input values) and against its f32 plain versions on the card (the
+# sequential recurrence and the chunked form), normwise, for both input
+# types: the kernel reads bf16 exactly and computes in f32, and every one
+# of the three sums its decay segments directly, so each is within f32
+# round-off of its own size of the exact answer. (Decay factors taken as
+# differences of cumulative sums, the TPU kernel's form, were 2e-5 off at
+# the training step: see PERF.md.)
+SSD_EXACT_TOL = 1e-5
+SSD_PLAIN_TOL = {"ssd_scan_ref": 1e-5, "ssd_chunked": 1e-5}
+# mamba2-1.3b training, kernel path against plain path, same weights and
+# batch: the loss (relative) and each parameter's gradient (max |kernel -
+# plain| over max |plain|, worst parameter). In f32 both differ by f32
+# round-off only. In bf16 a one-ulp difference in a layer's bf16-rounded
+# SSD output (2^-8 relative) is carried through 48 layers and the backward
+# pass; 5e-2 is about a dozen bf16 ulps. A wrong kernel moves the loss and
+# gradients by their own size.
+TRAIN_TOL = {
+    "float32": {"loss": 1e-5, "grad": 1e-4},
+    "bfloat16": {"loss": 1e-2, "grad": 5e-2},
+}
 # A served model's kernel path against its plain path on the card, in
 # bf16, normwise over the logits and each cache tensor: one rounding
 # difference in the attention or the scan output can move a bf16 value by
@@ -167,21 +214,22 @@ def device_us(ev) -> float:
     return dev_us
 
 
-def profiled_device_ms(fn, reps: int, name: str):
-    """Mean device time per launch of kernels whose name contains ``name``,
-    from torch.profiler; None if the profiler saw no device time."""
+def profiled_device_ms(fn, reps: int, *names: str):
+    """Device time per call of ``fn``: the time of the kernels whose name
+    contains one of ``names`` (a kernel of several launches names each),
+    from torch.profiler, over ``reps`` calls; None if the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key and device_us(ev) > 0:
-            total += device_us(ev)
-            count += ev.count
-    return total / count / 1e3 if count else None
+    total = sum(
+        device_us(ev) for ev in prof.key_averages()
+        if any(n in ev.key for n in names) and device_us(ev) > 0
+    )
+    return total / reps / 1e3 if total else None
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -233,7 +281,7 @@ def phase_build():
     """Build every CUDA source at once, one nvcc process each."""
     from repro_torch.kernels import _build
 
-    names = ("coded_combine", "flash_attention", "rglru_scan")
+    names = ("coded_combine", "flash_attention", "rglru_scan", "ssd_scan")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -562,12 +610,93 @@ def phase_scan_kernels():
     return rows
 
 
+def ssd_bound(B, S, H, P, N, chunk, dtype):
+    """(bound_ms, bound_by) of one K4 call: x, dt, A, B, C read and y, h_fin
+    written once; per chunk of qc steps 2 (N + P) flops per causal (i, j)
+    pair (C B^T and its product with x) and 4 N P per step (the chunk's
+    state and the carried-in term), at the peak rate for products of the
+    input type. The exponentials are not counted."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (B * S * H * P + 2 * B * S * N) * es + (B * S * H + H) * 4
+    nbytes += (B * S * H * P + B * H * P * N) * 4
+    flops = 0
+    for c0 in range(0, S, chunk):
+        qc = min(chunk, S - c0)
+        flops += 2 * (qc * (qc + 1) // 2) * (N + P) + 4 * qc * N * P
+    flops *= B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_PRODUCT_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ssd_kernels():
+    """K4 against the exact answer and its plain versions at every shape
+    (no single PyTorch call computes the scan, so no library time)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    rows = []
+    for shape_name, (B, S, H, P, N, chunk, dtype) in SSD_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(S * H + P)
+        x = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+        dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
+        A = -torch.exp(torch.randn(H, generator=g, device="cuda"))
+        Bm, Cm = (
+            (torch.randn(B, S, N, generator=g, device="cuda") / N**0.5).to(dtype)
+            for _ in range(2)
+        )
+
+        def kern():
+            return ssd_scan_kernel(x, dt, A, Bm, Cm, chunk)
+
+        def plain():
+            return ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+
+        def chunked():
+            return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+        with torch.no_grad():
+            y, h = kern()
+            exact = ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
+            versus = {"ssd_scan_ref": plain(), "ssd_chunked": chunked()}
+            torch.cuda.synchronize()
+            gaps = {"exact_f64": max(normwise_gap(y, exact[0]), normwise_gap(h, exact[1]))}
+            for name, (wy, wh) in versus.items():
+                gaps[name] = max(normwise_gap(y, wy), normwise_gap(h, wh))
+            row = dict(
+                name="ssd_scan", shape=shape_name, B=B, S=S, H=H, P=P, N=N, chunk=chunk,
+                dtype=str(dtype).replace("torch.", ""),
+                max_abs_err=max(max_err(y, versus["ssd_scan_ref"][0]),
+                                max_err(h, versus["ssd_scan_ref"][1])),
+                normwise_err=gaps, tol=dict(SSD_PLAIN_TOL, exact_f64=SSD_EXACT_TOL),
+                ms=cuda_ms(kern, 10),
+                device_ms=profiled_device_ms(
+                    kern, 10, "chunk_state_kernel", "state_pass_kernel", "chunk_output_kernel"),
+                plain_ms=cuda_ms(plain, 1), chunked_ms=cuda_ms(chunked, 3),
+                library_ms=None,
+            )
+        row["bound_ms"], row["bound_by"] = ssd_bound(B, S, H, P, N, chunk, dtype)
+        log("[kernels] " + json.dumps(row))
+        rows.append(row)
+        for label, (wy, wh), tol in (
+            ("exact f64", exact, SSD_EXACT_TOL),
+            *((n, versus[n], SSD_PLAIN_TOL[n]) for n in versus),
+        ):
+            hold(f"ssd_scan {shape_name} y vs {label}", y, wy.to(y.dtype), tol)
+            hold(f"ssd_scan {shape_name} h_fin vs {label}", h, wh.to(h.dtype), tol)
+        del x, dt, A, Bm, Cm, y, h, exact, versus
+        torch.cuda.empty_cache()
+    return rows
+
+
 def reset_launches():
     from repro_torch.kernels.coded_combine import LAUNCHES as k12
     from repro_torch.kernels.flash_attention import LAUNCHES as k3
     from repro_torch.kernels.rglru_scan import LAUNCHES as k5
+    from repro_torch.kernels.ssd_scan import LAUNCHES as k4
 
-    counters = (k12, k3, k5)
+    counters = (k12, k3, k4, k5)
     for c in counters:
         for k in c:
             c[k] = 0
@@ -676,6 +805,146 @@ def profile_share(fn, top: int = 5) -> dict:
                 top=[dict(name=n, ms=ms, launches=c) for ms, c, n in by_name[:top]])
 
 
+def grad_gap(got: dict, want: dict):
+    """(gap, name) of the worst parameter by max |got - want| / max |want|."""
+    worst = (0.0, "")
+    for name, w in want.items():
+        g = got[name]
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"gradient {name}: {tuple(g.shape)} finite={bool(torch.isfinite(g).all())}")
+        worst = max(worst, (max_err(g, w) / max(w.double().abs().max().item(), 1e-30), name))
+    return worst
+
+
+def phase_train_mamba2():
+    """mamba2-1.3b at full size: kernel path vs plain path (loss and
+    gradients, bf16 and f32), then 5 Adam steps through the training entry
+    point. Returns the K4 launches per training step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import agent_token_streams, make_lm_batch
+    from repro_torch.distributed import PlainRuntime
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), remat="full")
+    B, S, L = 2, 4096, cfg.n_layers
+    model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(True)
+    n_params = sum(p.numel() for p in model.parameters())
+    stream = agent_token_streams(1, cfg.vocab, seed=0)[0]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_lm_batch(stream, B, S).items()}
+    log(f"[train-mamba2] {cfg.name}: {n_params / 1e9:.3f} B parameters, batch {B} x {S}, "
+        f"remat {cfg.remat}")
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            model.to(torch.float32)  # every weight; exact from bf16
+        out = {}
+        for impl in ("kernel", "plain"):
+            model.cfg = dataclasses.replace(cfg, dtype=dtype, ssm_impl=impl)
+            counters = reset_launches()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches(counters)
+            out[impl] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()})
+            model.zero_grad(set_to_none=True)
+            want = {k: 0 for k in launches}
+            want["ssd_scan"] = 2 * L if impl == "kernel" else 0
+            if launches != want:
+                raise AssertionError(f"train-mamba2 {dtype} {impl}: launches {launches}, want {want}")
+            log(f"[train-mamba2] {dtype} {impl} path: loss {out[impl][0].item():.6f}, "
+                f"loss + backward {seconds:.3f} s, launches {launches}")
+        (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+        loss_gap = abs(lk.item() - lp.item()) / abs(lp.item())
+        g_gap, g_name = grad_gap(gk, gp)
+        tol = TRAIN_TOL[dtype]
+        log(f"[train-mamba2] {dtype}, kernel path vs plain path: loss relative gap "
+            f"{loss_gap:.3e} (tolerance {tol['loss']:.0e}), worst parameter gradient gap "
+            f"{g_gap:.3e} at {g_name} (tolerance {tol['grad']:.0e})")
+        if not (np.isfinite(lk.item()) and loss_gap <= tol["loss"] and g_gap <= tol["grad"]):
+            raise AssertionError(f"train-mamba2 {dtype}: kernel vs plain beyond tolerance")
+        result[f"{dtype}_loss_gap"], result[f"{dtype}_grad_gap"] = loss_gap, g_gap
+        del out, gk, gp
+    del model
+    torch.cuda.empty_cache()
+
+    # The training entry point: 5 Adam steps (lr 3e-4, clip 1.0) in bf16.
+    steps = 5
+    counters = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.main(["--arch", "mamba2-1.3b", "--batch", str(B), "--seq", str(S),
+                      "--steps", str(steps), "--log-every", "1", "--seed", "0"])
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    want = {k: 0 for k in launches}
+    want["ssd_scan"] = steps * 2 * L
+    if launches != want:
+        raise AssertionError(f"train-mamba2: launches {launches}, want {want} ({steps} steps)")
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train-mamba2: losses {losses}")
+    warm = float(np.median(run["step_s"][1:]))
+    log(f"[train-mamba2] {steps} steps: losses {json.dumps(losses)}, step s "
+        f"{json.dumps(run['step_s'])}, warm step {warm:.4f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, K4 launches {launches['ssd_scan']} "
+        f"({launches['ssd_scan'] // steps} per step)")
+    rt = PlainRuntime(run["model"], lr=3e-4)
+    state = run["state"]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in make_lm_batch(stream, B, S).items()}
+    prof = profile_share(lambda: rt.train_step(state, batch), top=8)
+    log("[train-mamba2] profile of one warm step: " + json.dumps(prof))
+    result.update(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
+                  launches_per_step=launches["ssd_scan"] // steps)
+    del run, rt, state, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_card_vs_cpu_train():
+    """The mamba2 smoke config in f32: 3 training steps on the card (K4)
+    against the same steps on the CPU (plain version), same weights and
+    batches; losses (relative) and final parameters (normwise: Adam moves
+    an element whose f32 gradient is round-off by up to lr per step on
+    either side, so 1e-4 at lr 1e-3)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import agent_token_streams, make_lm_batch
+    from repro_torch.distributed import PlainRuntime
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("mamba2-1.3b")
+    cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    gpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).to("cuda")
+    rt_c, rt_g = PlainRuntime(cpu, lr=1e-3), PlainRuntime(gpu, lr=1e-3)
+    st_c, st_g = rt_c.init_state(), rt_g.init_state()
+    stream = agent_token_streams(1, cfg.vocab, seed=2)[0]
+    counters = reset_launches()
+    worst = 0.0
+    for step in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in make_lm_batch(stream, 2, 96).items()}
+        st_c, m_c = rt_c.train_step(st_c, batch)
+        st_g, m_g = rt_g.train_step(st_g, {k: v.cuda() for k, v in batch.items()})
+        for key in ("loss", "grad_norm"):
+            gap = abs(m_g[key].item() - m_c[key].item()) / abs(m_c[key].item())
+            worst = max(worst, gap)
+            if gap > 1e-5:
+                raise AssertionError(f"mamba2 smoke step {step} {key}: gap {gap:.3e} > 1e-5")
+    launches = read_launches(counters)
+    if launches["ssd_scan"] == 0:
+        raise AssertionError("mamba2 smoke: the card run launched no ssd_scan")
+    pgap = max(
+        hold(f"mamba2 smoke {n}", pg.detach(), pc.detach().cuda(), CARD_VS_CPU_TOL)
+        for (n, pg), (_, pc) in zip(gpu.named_parameters(), cpu.named_parameters())
+    )
+    log(f"[card-vs-cpu] mamba2 smoke, 3 training steps (f32): launches {launches}, worst "
+        f"loss/grad-norm relative gap {worst:.3e} (tolerance 1e-5), worst parameter "
+        f"normwise gap {pgap:.3e} (tolerance {CARD_VS_CPU_TOL:.0e})")
+    del gpu
+    torch.cuda.empty_cache()
+
+
 def phase_card_vs_cpu():
     """The port on the card (kernels) against the port on the CPU (plain
     versions), same weights, prefill then 3 teacher-forced decode steps."""
@@ -739,20 +1008,25 @@ def main() -> int:
     rows = phase_kernels()
     rows += phase_attention_kernels()
     rows += phase_scan_kernels()
+    rows += phase_ssd_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()
     qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28)
     rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26)
+    mamba = phase_train_mamba2()
     phase_card_vs_cpu()
+    phase_card_vs_cpu_train()
 
     launches["flash_attention"] = qwen["launches"]["flash_attention"]
     launches["rglru_scan"] = rg["launches"]["rglru_scan"]
+    launches["ssd_scan"] = mamba["launches_per_step"]
     # Each kernel's row in the summary: its main path's shape and dtype.
     main_shape = {
         "coded_admm_update": ("fig5_step", "float64"),
         "coded_combine": ("fig5_step", "float64"),
         "flash_attention": ("qwen3_step", "bfloat16"),
         "rglru_scan": ("rg_step", "float32"),
+        "ssd_scan": ("train_step", "bfloat16"),
     }
     main_row = {
         r["name"]: r for r in rows if (r["shape"], r["dtype"]) == main_shape[r["name"]]

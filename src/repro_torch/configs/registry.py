@@ -17,6 +17,7 @@ from .shapes import SHAPES as SHAPES  # re-exported via repro_torch.configs
 _ARCH_MODULES = {
     "qwen3-0.6b": "qwen3_0_6b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 # The reference's other archs, and the family each waits for.
 _NOT_PORTED = {
@@ -24,7 +25,6 @@ _NOT_PORTED = {
     "phi3.5-moe-42b-a6.6b": "moe",
     "llama3-405b": "dense (config not ported)",
     "stablelm-1.6b": "dense (config not ported)",
-    "mamba2-1.3b": "ssm",
     "qwen2-vl-72b": "vlm",
     "internlm2-20b": "dense (config not ported)",
     "whisper-medium": "audio",

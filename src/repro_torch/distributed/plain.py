@@ -1,0 +1,62 @@
+"""Plain training / serving steps on one device (port of
+`repro.distributed.plain`, without its mesh and XLA lowering).
+
+``train_step`` is the reference's: the loss's gradient, clipping at a
+global norm of 1.0, one Adam step (float32 moments), and the metrics
+``loss``, ``nll`` and ``grad_norm``. The parameters live in the model and
+are updated in place; the runtime's state holds the optimizer's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.optim import adam_init, adam_update, clip_by_global_norm
+
+__all__ = ["PlainRuntime"]
+
+
+class PlainRuntime:
+    """Train/prefill/decode steps for one model. Turns the model's
+    parameters' gradients on (they are created without)."""
+
+    def __init__(self, model, lr: float = 3e-4):
+        self.model = model
+        self.lr = lr
+        model.requires_grad_(True)
+
+    def params(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def init_state(self) -> dict:
+        return {"opt": adam_init(self.params())}
+
+    def train_step(self, state: dict, batch: dict) -> Tuple[dict, dict]:
+        params = self.params()
+        for p in params.values():
+            p.grad = None
+        loss, metrics = self.model.loss(batch)
+        loss.backward()
+        grads = {
+            k: torch.zeros_like(p) if p.grad is None else p.grad
+            for k, p in params.items()
+        }
+        grads, gn = clip_by_global_norm(grads, 1.0)
+        new, opt = adam_update(params, grads, state["opt"], self.lr)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(new[k])
+                p.grad = None
+        return {"opt": opt}, {
+            "loss": loss.detach(),
+            "nll": metrics["nll"].detach(),
+            "grad_norm": gn,
+        }
+
+    def prefill_step(self, batch: dict) -> Tuple[torch.Tensor, Any]:
+        return self.model.prefill(batch["tokens"])
+
+    def serve_step(self, cache: Any, token: torch.Tensor):
+        return self.model.decode_step(cache, token)

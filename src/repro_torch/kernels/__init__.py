@@ -8,14 +8,27 @@ PyTorch versions.
       attention of every transformer prefill. ``csrc/flash_attention.cu``.
   rglru_scan (K5) — the RG-LRU linear recurrence of every RecurrentGemma
       prefill. ``csrc/rglru_scan.cu``.
+  ssd_scan (K4) — the chunked Mamba-2 SSD scan of the mamba2 training
+      forward, with a plain-PyTorch gradient. ``csrc/ssd_scan.cu``.
 
 All are CUDA C++ for sm_90a. `ops` holds the public entry points (CUDA
 tensors -> kernel, CPU tensors -> plain version); `ref` the plain PyTorch
-versions; `coded_combine`, `flash_attention` and `rglru_scan` the ctypes
-bindings with their launch counters; `_build` the nvcc build. The SSD scan
-(K4) is not ported yet (ROADMAP Queue 2).
+versions; `coded_combine`, `flash_attention`, `rglru_scan` and `ssd_scan` the
+ctypes bindings with their launch counters; `_build` the nvcc build.
 """
 
-from .ops import coded_admm_update, coded_combine, flash_attention, rglru_scan
+from .ops import (
+    coded_admm_update,
+    coded_combine,
+    flash_attention,
+    rglru_scan,
+    ssd_scan,
+)
 
-__all__ = ["coded_combine", "coded_admm_update", "flash_attention", "rglru_scan"]
+__all__ = [
+    "coded_combine",
+    "coded_admm_update",
+    "flash_attention",
+    "rglru_scan",
+    "ssd_scan",
+]

@@ -79,7 +79,16 @@ def flash_attention_kernel(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Attention of q over k/v with query positions ``arange(Sq) + q_offset``
-    and key positions ``arange(Skv)``; out (B, Sq, H, hd) in q's dtype."""
+    and key positions ``arange(Skv)``; out (B, Sq, H, hd) in q's dtype.
+
+    The kernel has no backward yet: under grad mode, inputs that require a
+    gradient raise rather than return an output that would drop it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_kernel has no backward yet (ROADMAP.md Queue 2, "
+            "K3 backward kernel): call it under torch.no_grad() or on inputs "
+            "that do not require grad"
+        )
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")

@@ -1,10 +1,11 @@
 """Public entry points of the kernels, dispatched by device.
 
-Counterpart of `repro.kernels.ops` (all but ``ssd_scan``, whose kernel is
-not ported yet). A CUDA tensor goes to the hand-written kernel or the
-call raises; a CPU tensor goes to the plain PyTorch version
-(`repro_torch.kernels.ref`); any other device raises. There is no fallback
-from one to the other.
+Counterpart of `repro.kernels.ops`. A CUDA tensor goes to the
+hand-written kernel or the call raises; a CPU tensor goes to the plain
+PyTorch version (`repro_torch.kernels.ref`); any other device raises.
+There is no fallback from one to the other. ``ssd_scan`` is also
+differentiable (`_SSDScan`); the other kernels have no backward yet and
+refuse inputs that need a gradient.
 
 Unlike the reference, nothing is padded or re-tiled: the TPU kernels need
 128-lane tiles and block sizes that divide the sequence (hence
@@ -28,10 +29,18 @@ from .ref import (
     compute_dtype,
     flash_attention_ref,
     rglru_scan_ref,
+    ssd_scan_ref,
 )
 from .rglru_scan import rglru_scan_kernel
+from .ssd_scan import ssd_scan_kernel
 
-__all__ = ["coded_combine", "coded_admm_update", "flash_attention", "rglru_scan"]
+__all__ = [
+    "coded_combine",
+    "coded_admm_update",
+    "flash_attention",
+    "rglru_scan",
+    "ssd_scan",
+]
 
 
 def _on_cuda(t: torch.Tensor, what: str = "coded-combine") -> bool:
@@ -133,3 +142,66 @@ def rglru_scan(
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
     return rglru_scan_kernel(*f32, h0)
+
+
+class _SSDScan(torch.autograd.Function):
+    """K4 with a gradient. The forward is the CUDA kernel for CUDA tensors
+    and the sequential plain version for CPU tensors. The backward is plain
+    PyTorch on both devices: the JAX package has no backward kernel for
+    its SSD scan (nothing there defines a custom VJP, and the reference
+    trains through ``ssd_chunked``), so the backward recomputes the port's
+    ``ssd_chunked`` from the saved inputs under autograd and returns its
+    gradients — what the reference's trained path differentiates. A
+    backward kernel is ROADMAP Queue 2 work."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        if x.device.type == "cuda":
+            y, h = ssd_scan_kernel(
+                x.contiguous(), dt.to(torch.float32).contiguous(),
+                A.to(torch.float32).contiguous(), Bm.contiguous(), Cm.contiguous(),
+                chunk,
+            )
+        else:
+            y, h = ssd_scan_ref(x, dt, A, Bm, Cm)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from repro_torch.models.mamba2 import ssd_chunked
+
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [
+                t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)
+            ]
+            y, h = ssd_chunked(*leaves, ctx.chunk)
+            # An output whose gradient is None (unused) is left out; then an
+            # input may be unused too (h_final does not depend on Cm).
+            pairs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t in leaves if t.requires_grad],
+                [g for _, g in pairs], allow_unused=True,
+            ))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan from a zero state: (y (B, S, H, P), h_final
+    (B, H, P, N)). On CUDA: the kernel (x, Bm, Cm of one dtype, float32 or
+    bfloat16; float32 outputs; a ragged S masked in the kernel, as the
+    reference's dt = 0 padding). On the CPU: the sequential plain version. Differentiable on
+    both (`_SSDScan`)."""
+    _on_cuda(x, "ssd-scan")
+    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)

@@ -10,6 +10,9 @@ Counterparts of `repro.kernels.ref`:
 - ``flash_attention_ref``: dense attention in the kernel's (B, H, S, hd)
   layout, GQA by head mapping, float32 scores.
 - ``rglru_scan_ref``: the sequential linear recurrence in float32.
+- ``ssd_scan_ref``: the sequential Mamba-2 SSD recurrence, in
+  ``promote(dtype, float32)`` (the reference computes in float32 and
+  raises on float64 ``dt``; float64 here serves the gradient checks).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ __all__ = [
     "coded_admm_update_ref",
     "flash_attention_ref",
     "rglru_scan_ref",
+    "ssd_scan_ref",
 ]
 
 
@@ -126,3 +130,36 @@ def rglru_scan_ref(
         h = a[:, t].float() * h + b[:, t].float()
         hs[:, t] = h
     return hs, h
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence step by step (its mathematical definition):
+
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t^T ;  y_t = h_t C_t,
+
+    in ``promote(dtype, float32)`` of the inputs. Returns (y (B, S, H, P),
+    h_final (B, H, P, N)). Differentiable (no in-place writes)."""
+    ct = compute_dtype(torch.promote_types(x.dtype, dt.dtype))
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = (
+        torch.zeros((B_, H, P, N), dtype=ct, device=x.device)
+        if h0 is None
+        else h0.to(ct)
+    )
+    A = A.to(ct)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t].to(ct)  # (B, H)
+        a = torch.exp(dt_t[:, :, None, None] * A[None, :, None, None])
+        xdt = x[:, t].to(ct) * dt_t[:, :, None]
+        h = a * h + xdt[..., None] * Bm[:, t].to(ct)[:, None, None, :]
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t].to(ct)))
+    return torch.stack(ys, dim=1), h

@@ -42,7 +42,18 @@ def rglru_scan_kernel(
     b: torch.Tensor,  # (B, S, W) float32
     h0: Optional[torch.Tensor] = None,  # (B, W) float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (h (B, S, W) f32, h_last (B, W) f32)."""
+    """Returns (h (B, S, W) f32, h_last (B, W) f32).
+
+    The kernel has no backward yet: under grad mode, inputs that require a
+    gradient raise rather than return outputs that would drop it."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (a, b, h0)
+    ):
+        raise RuntimeError(
+            "rglru_scan_kernel has no backward yet (ROADMAP.md Queue 2, K5 "
+            "backward kernel): call it under torch.no_grad() or on inputs "
+            "that do not require grad"
+        )
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got a on {a.device}")
     if a.dim() != 3:

@@ -76,7 +76,9 @@ class ModelConfig:
     attn_block_q: int = 512
     attn_block_kv: int = 1024
     tie_embeddings: bool = False
-    remat: str = "none"  # training path only (not ported yet)
+    # activation checkpointing of the layers (training path only):
+    #   none | full (recompute each layer from its input) | dots (raises)
+    remat: str = "none"
     # "kernel" (hand-written CUDA kernels) or "plain" (PyTorch paths)
     attn_impl: str = "kernel"
     ssm_impl: str = "kernel"

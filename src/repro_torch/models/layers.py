@@ -6,7 +6,8 @@ conventions:
   B batch, S sequence, D d_model, H query heads, KV kv heads, hd head_dim,
   F d_ff, W attention window.
 
-and its numerics: norms and RoPE compute in float32 and cast back, masked
+and its numerics: norms and RoPE compute in float32 (norms: ``widened``,
+float64 for float64 inputs) and cast back, masked
 scores take ``NEG_INF = -1e30``, attention scores and softmax run in
 float32, and decode attention rounds the scaled query and the
 probabilities to the cache's storage dtype before float32-accumulated
@@ -28,6 +29,7 @@ from torch import nn
 __all__ = [
     "NEG_INF",
     "ParamModule",
+    "widened",
     "rmsnorm",
     "layernorm",
     "rope_frequencies",
@@ -37,6 +39,8 @@ __all__ = [
     "blocked_attention",
     "decode_attention",
     "mlp_apply",
+    "causal_conv",
+    "maybe_remat",
 ]
 
 NEG_INF = -1e30
@@ -61,8 +65,9 @@ def _const(shape, value: float, dt: torch.dtype):
 class ParamModule(nn.Module):
     """A module whose parameters are declared by shape and init rule.
 
-    Parameters are created empty on ``device`` (no gradient: this is the
-    serving path) and filled by ``init_`` one tensor at a time, drawn in
+    Parameters are created empty on ``device`` without a gradient (serving;
+    a trainer turns gradients on with ``requires_grad_(True)``) and filled
+    by ``init_`` one tensor at a time, drawn in
     float32 on the device and then cast, so a 10 B-parameter model never
     holds a float32 copy of more than one tensor. The draws follow the
     reference's scales, not its random bits."""
@@ -98,22 +103,28 @@ class ParamModule(nn.Module):
 # --------------------------------------------------------------------------
 
 
+def widened(dtype: torch.dtype) -> torch.dtype:
+    """The type the layers compute in: float32, or float64 for float64
+    (the reference widens to float32; float64 serves the f64 checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = x.to(widened(dt))
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + scale.float())).to(dt)
+    return (x * (1.0 + scale.to(x.dtype))).to(dt)
 
 
 def layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = x.to(widened(dt))
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(dt)
+    return (y * scale.to(x.dtype) + bias.to(x.dtype)).to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -307,3 +318,49 @@ def mlp_apply(x: torch.Tensor, p, act: str) -> torch.Tensor:
         return h @ p.w_down
     h = gelu(x @ p.w_in)
     return h @ p.w_out
+
+
+# --------------------------------------------------------------------------
+# Convolution, rematerialisation
+# --------------------------------------------------------------------------
+
+
+def causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over S in float32 (``widened``): out_t =
+    sum_j w_j x_{t-cw+1+j} + b, cast back to ``seq``'s dtype. seq (B, S, C),
+    w (cw, C), b (C,)."""
+    S = seq.shape[1]
+    cw = w.shape[0]
+    ct = widened(seq.dtype)
+    pad = F.pad(seq.to(ct), (0, 0, cw - 1, 0))
+    wf = w.to(ct)
+    out = pad[:, 0:S] * wf[0]
+    for j in range(1, cw):
+        out = out + pad[:, j:j + S] * wf[j]
+    return (out + b.to(ct)).to(seq.dtype)
+
+
+def maybe_remat(fn, remat: str):
+    """Wrap a per-layer function in activation checkpointing per the
+    config policy (the reference's ``jax.checkpoint`` of the layer scan).
+
+    "none" keeps every activation; "full" keeps only the layer's inputs
+    and recomputes the layer in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant). "dots" (keep matmul
+    outputs) is not ported: it raises, naming ROADMAP.md Queue 1, item 15.
+    """
+    if remat == "none":
+        return fn
+    if remat == "full":
+        from torch.utils.checkpoint import checkpoint
+
+        def remat_fn(*args):
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        return remat_fn
+    if remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" (save matmul outputs) is not ported yet: ROADMAP.md '
+            'Queue 1, item 15; use "full" or "none"'
+        )
+    raise ValueError(f"unknown remat policy {remat!r}")

@@ -1,0 +1,356 @@
+"""Mamba-2 (SSD, state-space duality) language model [arXiv:2405.21060]
+(port of `repro.models.mamba2`).
+
+Block = in_proj -> causal depthwise conv (x, B, C) -> SSD -> gated RMSNorm
+-> out_proj. ``Mamba2`` is an ``nn.Module`` whose ``layers`` is an
+``nn.ModuleList`` of per-layer ``Mamba2Block``s with the reference's
+parameter names and ``(in, out)`` weights, so
+`repro_torch.models.params.from_reference` loads a layer as a slice of the
+reference's stacked arrays. Its entry points:
+
+  forward(tokens) -> hidden (B, S, D)        training forward
+  loss(batch)     -> (loss, metrics)         the reference's loss_fn
+  prefill(tokens, extra_slots=0) -> (last logits, cache)
+  decode_step(cache, token)      -> (logits, cache)
+  init_cache(B, seq_len)
+
+The training forward's SSD runs through K4 (``ssm_impl="kernel"``:
+`repro_torch.kernels.ops.ssd_scan`, the CUDA kernel on the card, with a
+gradient) or the plain chunked form ``ssd_chunked`` (``"plain"``), layer
+by layer under ``maybe_remat``. Prefill always uses ``ssd_chunked`` (it
+needs the final state, as in the reference) and decode the one-step
+recurrence ``ssd_decode``.
+
+The SSD algebra computes in ``promote(dtype, float32)``: float32 for the
+bf16 and f32 models, as the reference, and float64 for float64 inputs
+(the reference casts to float32 there; float64 serves the gradient
+checks). Shapes: B batch, S seq, D d_model, di = expand * D, H heads,
+P = di / H head dim, N state, Q chunk.
+
+Cache (the reference's layout): ssm (L, B, H, P, N) float32, conv
+(L, B, W - 1, conv_dim) with the pre-conv tail, ``len`` a Python int.
+``decode_step`` writes the cache's tensors in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+
+from .config import ModelConfig
+from .layers import (
+    ParamModule,
+    _const,
+    _normal,
+    causal_conv,
+    maybe_remat,
+    rmsnorm,
+    widened,
+)
+from .losses import lm_loss
+
+__all__ = ["Mamba2Block", "Mamba2", "ssd_chunked", "ssd_decode"]
+
+
+def _dims(cfg: ModelConfig):
+    di = cfg.ssm_expand * cfg.d_model
+    H = cfg.ssm_heads
+    P = cfg.ssm_head_dim or di // H
+    N = cfg.ssm_state
+    conv_dim = di + 2 * N  # x, B, C pass through the conv (G = 1)
+    return di, H, P, N, conv_dim
+
+
+def _ct(*tensors) -> torch.dtype:
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return widened(dt)
+
+
+# --------------------------------------------------------------------------
+# SSD core (plain)
+# --------------------------------------------------------------------------
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{j < t <= i}
+    a[..., t], -inf above the diagonal.
+
+    Each entry is summed directly (a cumulative sum down the rows of the
+    masked matrix a[t] [t > j]), not as the difference cs[i] - cs[j] of
+    one cumulative sum, which is the reference's form. The terms are all
+    <= 0, so a direct sum is accurate to its own size; the difference
+    loses eps * |cs| to cancellation, and |cs| reaches thousands within a
+    256-step chunk of mamba2-1.3b (A down to -16): in float32 a relative
+    error of about 1e-4 in every decay factor near the diagonal."""
+    Q = a.shape[-1]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=a.device)
+    terms = a[..., :, None].masked_fill(~torch.tril(tri, diagonal=-1), 0.0)
+    seg = torch.cumsum(terms, dim=-2)  # [i, j]: sum of a[t], j < t <= i
+    return seg.masked_fill(~torch.tril(tri), -math.inf)
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba-2 algorithm): returns (y (B, S, H, P), final
+    state (B, H, P, N)) in the compute dtype. Intra-chunk dual quadratic
+    form, inter-chunk state carried chunk by chunk; a ragged S is padded
+    with dt = 0 steps (decay 1, input 0: identities on the state)."""
+    ct = _ct(x, dt, A, Bm, Cm)
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    S_orig = S
+    if S % Q:
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S += pad
+    nc = S // Q
+    dt = dt.to(ct)
+    a = dt * A.to(ct)  # (B, S, H) log-decay per step
+    xdt = x.to(ct) * dt[..., None]
+    ac = a.reshape(B_, nc, Q, H)
+    xc = xdt.reshape(B_, nc, Q, H, P)
+    Bc = Bm.to(ct).reshape(B_, nc, Q, N)
+    Cc = Cm.to(ct).reshape(B_, nc, Q, N)
+
+    h = torch.zeros((B_, H, P, N), dtype=ct, device=x.device) if h0 is None else h0.to(ct)
+    ys = []
+    for c in range(nc):
+        a_t = ac[:, c].transpose(1, 2)  # (B, H, Q)
+        x_, B_in, C_in = xc[:, c], Bc[:, c], Cc[:, c]
+        cum = torch.cumsum(a_t, dim=-1)  # (B, H, Q)
+        L = torch.exp(_segsum(a_t))  # (B, H, Q, Q) decay from step j to i
+        scores = torch.einsum("bin,bjn->bij", C_in, B_in)  # (B, Q, Q)
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores[:, None] * L, x_)
+        # carried-in state: y_inter[i] = C_i h * exp(cum_i)
+        y_inter = torch.einsum("bin,bhpn->bihp", C_in, h) * torch.exp(cum).transpose(1, 2)[..., None]
+        # chunk-final state: h' = h exp(cum_Q) + sum_j exp(cum_Q - cum_j) x_j B_j^T,
+        # exp(cum_Q - cum_j) being L's last row
+        decay_out = L[..., -1, :]  # (B, H, Q)
+        h = h * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", x_ * decay_out.transpose(1, 2)[..., None], B_in
+        )
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(B_, S, H, P)
+    return y[:, :S_orig], h
+
+
+def ssd_decode(
+    x: torch.Tensor,  # (B, 1, H, P)
+    dt: torch.Tensor,  # (B, 1, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, 1, N)
+    Cm: torch.Tensor,  # (B, 1, N)
+    h: torch.Tensor,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-step recurrence: h = exp(dt A) h + (dt x) B^T; y = h C."""
+    ct = _ct(dt, h)
+    a = torch.exp(dt[:, 0, :, None, None].to(ct) * A.to(ct)[None, :, None, None])
+    xdt = x[:, 0].to(ct) * dt[:, 0, :, None].to(ct)
+    h_new = a * h + xdt[..., None] * Bm[:, 0].to(ct)[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm[:, 0].to(ct))
+    return y[:, None], h_new
+
+
+# --------------------------------------------------------------------------
+# Parameters
+# --------------------------------------------------------------------------
+
+
+class Mamba2Block(ParamModule):
+    """One mamba2 layer. ``A_log``, ``dt_bias`` and ``D_skip`` are float32
+    whatever the model dtype, with the reference's exact values."""
+
+    def __init__(self, cfg: ModelConfig, device) -> None:
+        dt = cfg.torch_dtype
+        D, L, W = cfg.d_model, cfg.n_layers, cfg.conv_width
+        di, H, P, N, conv_dim = _dims(cfg)
+        f32 = torch.float32
+        spec = {
+            "ln": _const((D,), 0.0, dt),
+            # in_proj packs (z, x, B, C, dt): di + di + N + N + H columns
+            "w_in": _normal((D, 2 * di + 2 * N + H), 0.02, dt),
+            "conv_w": _normal((W, conv_dim), 0.2, dt),
+            "conv_b": _const((conv_dim,), 0.0, dt),
+            "A_log": _const((H,), 0.0, f32),  # set in init_
+            "dt_bias": _const((H,), 0.0, f32),
+            "D_skip": _const((H,), 1.0, f32),
+            "norm": _const((di,), 0.0, dt),
+            "w_out": _normal((di, D), 0.02 / max(L, 1) ** 0.5, dt),
+        }
+        super().__init__(spec, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "Mamba2Block":
+        super().init_(generator)
+        H = self.A_log.shape[0]
+        a = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float64))
+        self.A_log.copy_(a.to(torch.float32))
+        return self
+
+
+def _block_seq(cfg: ModelConfig, lp, u: torch.Tensor) -> torch.Tensor:
+    """Full-sequence mamba2 block (pre-norm residual), the training path."""
+    di, H, P, N, conv_dim = _dims(cfg)
+    B_, S, _ = u.shape
+    h = rmsnorm(u, lp.ln)
+    z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
+    xBC = F.silu(causal_conv(xBC, lp.conv_w, lp.conv_b))
+    x, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    dt, A = _dt_A(lp, dt_raw)
+    xh = x.reshape(B_, S, H, P)
+    if cfg.ssm_impl == "kernel":
+        y, _ = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
+    else:
+        y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    return _gated_out(lp, u, y, xh, z)
+
+
+def _dt_A(lp, dt_raw: torch.Tensor):
+    """dt = softplus(dt_raw + dt_bias) and A = -exp(A_log) in the widened
+    type (float32 for the bf16 and f32 models)."""
+    ct = widened(dt_raw.dtype)
+    x = dt_raw.to(ct) + lp.dt_bias.to(ct)
+    dt = torch.logaddexp(x, torch.zeros_like(x))  # stable softplus
+    return dt, -torch.exp(lp.A_log.to(ct))
+
+
+def _gated_out(lp, u, y, xh, z):
+    """y + D x, gated RMSNorm, out_proj, residual."""
+    B_, S = u.shape[:2]
+    y = y + lp.D_skip.to(y.dtype)[None, None, :, None] * xh.to(y.dtype)
+    y = y.reshape(B_, S, -1).to(u.dtype)
+    y = rmsnorm(y, lp.norm) * F.silu(z)
+    return u + y @ lp.w_out
+
+
+class Mamba2(ParamModule):
+    """Mamba-2 LM. Its own parameters are the embedding, the final norm and
+    the untied head; ``layers`` holds the blocks."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda") -> None:
+        cfg.validate()
+        dt = cfg.torch_dtype
+        D, V = cfg.d_model, cfg.vocab
+        spec = {"embed": _normal((V, D), 0.02, dt), "final_norm": _const((D,), 0.0, dt)}
+        if not cfg.tie_embeddings:
+            spec["lm_head"] = _normal((D, V), 0.02, dt)
+        super().__init__(spec, device)
+        self.cfg = cfg
+        self.layers = nn.ModuleList(Mamba2Block(cfg, device) for _ in range(cfg.n_layers))
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> "Mamba2":
+        super().init_(generator)
+        for blk in self.layers:
+            blk.init_(generator)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return hidden @ head
+
+    # ---- training -----------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Hidden states (B, S, D) after the final norm."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+        for lp in self.layers:
+            x = maybe_remat(lambda u, lp=lp: _block_seq(cfg, lp, u), cfg.remat)(x)
+        return rmsnorm(x, self.final_norm)
+
+    def loss(self, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """The reference's loss_fn: mean token NLL (row-weighted when the
+        batch has ``loss_weights``); returns (loss, {"nll", "moe_aux"})."""
+        logits = self._logits(self.forward(batch["tokens"]))
+        loss = lm_loss(logits, batch["labels"], batch.get("loss_weights"))
+        return loss, {"nll": loss, "moe_aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
+
+    # ---- serving ------------------------------------------------------------
+
+    def init_cache(self, B: int, seq_len: int) -> dict:
+        """SSM state + conv tail: O(1) in seq_len."""
+        cfg = self.cfg
+        di, H, P, N, conv_dim = _dims(cfg)
+        L, W, dev = cfg.n_layers, cfg.conv_width, self.device
+        return {
+            "ssm": torch.zeros((L, B, H, P, N), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((L, B, W - 1, conv_dim), dtype=cfg.torch_dtype, device=dev),
+            "len": 0,
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, extra_slots: int = 0) -> Tuple[torch.Tensor, dict]:
+        """Prompt pass (B, S): the last position's logits (B, 1, V) and the
+        recurrent state cache (``extra_slots`` is accepted for API
+        uniformity; the state is O(1))."""
+        cfg = self.cfg
+        di, H, P, N, conv_dim = _dims(cfg)
+        B_, S = tokens.shape
+        x = self.embed[tokens.long()]
+        cache = self.init_cache(B_, S)
+        for l, lp in enumerate(self.layers):
+            u = x
+            h = rmsnorm(u, lp.ln)
+            z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
+            cache["conv"][l] = xBC[:, S - (cfg.conv_width - 1):]
+            xBC = F.silu(causal_conv(xBC, lp.conv_w, lp.conv_b))
+            xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+            dt, A = _dt_A(lp, dt_raw)
+            xh = xs.reshape(B_, S, H, P)
+            y, cache["ssm"][l] = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+            x = _gated_out(lp, u, y, xh, z)
+        x = rmsnorm(x, self.final_norm)
+        cache["len"] = S
+        return self._logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, token: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """One decode step (token (B, 1)); updates the cache in place.
+        Returns (logits (B, 1, V), cache)."""
+        cfg = self.cfg
+        di, H, P, N, conv_dim = _dims(cfg)
+        B_ = token.shape[0]
+        x = self.embed[token.long()]  # (B, 1, D)
+        for l, lp in enumerate(self.layers):
+            u = x
+            h = rmsnorm(u, lp.ln)
+            z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
+            window = torch.cat([cache["conv"][l], xBC], dim=1)  # (B, W, conv)
+            ct = widened(window.dtype)
+            conv_out = torch.einsum(
+                "bwc,wc->bc", window.to(ct), lp.conv_w.to(ct)
+            ) + lp.conv_b.to(ct)
+            xBC = F.silu(conv_out)[:, None].to(u.dtype)
+            xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+            dt, A = _dt_A(lp, dt_raw)
+            xh = xs.reshape(B_, 1, H, P)
+            y, cache["ssm"][l] = ssd_decode(xh, dt, A, Bm, Cm, cache["ssm"][l])
+            x = _gated_out(lp, u, y, xh, z)
+            cache["conv"][l] = window[:, 1:]
+        x = rmsnorm(x, self.final_norm)
+        cache["len"] += 1
+        return self._logits(x), cache

@@ -5,7 +5,8 @@
 ``nn.Module`` with its weights drawn on ``device`` from ``generator``
 (a fresh ``torch.Generator`` seeded 0 when None). Every model has
 ``prefill(tokens, extra_slots=0)``, ``decode_step(cache, token)`` and
-``init_cache(B, seq_len)``.
+``init_cache(B, seq_len)``; the ssm family (mamba2) also trains:
+``forward(tokens)`` and ``loss(batch)``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,13 @@ from typing import Optional, Union
 import torch
 
 from .config import ModelConfig
+from .mamba2 import Mamba2
 from .rglru import RecurrentGemma
 from .transformer import Transformer
 
 __all__ = ["FAMILIES", "get_model", "empty_model", "resolve_device"]
 
-FAMILIES = {"dense": Transformer, "hybrid": RecurrentGemma}
+FAMILIES = {"dense": Transformer, "ssm": Mamba2, "hybrid": RecurrentGemma}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

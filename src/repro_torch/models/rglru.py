@@ -43,6 +43,7 @@ from .layers import (
     _normal,
     apply_rope,
     blocked_attention,
+    causal_conv,
     decode_attention,
     gelu,
     mlp_apply,
@@ -171,18 +172,6 @@ def rglru_step(
     return h_new.to(x.dtype)[:, None], h_new
 
 
-def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over S in float32: out_t = sum_j w_j x_{t-cw+1+j}."""
-    S = seq.shape[1]
-    cw = w.shape[0]
-    pad = F.pad(seq.float(), (0, 0, cw - 1, 0))
-    wf = w.float()
-    out = pad[:, 0:S] * wf[0]
-    for j in range(1, cw):
-        out = out + pad[:, j:j + S] * wf[j]
-    return (out + b.float()).to(seq.dtype)
-
-
 # --------------------------------------------------------------------------
 # Blocks (full sequence)
 # --------------------------------------------------------------------------
@@ -193,7 +182,7 @@ def _rec_block_seq(cfg: ModelConfig, lp, x, h0: Optional[torch.Tensor] = None):
     h = rmsnorm(x, lp.ln)
     gate = gelu((h @ lp.w_gate_in).float()).to(x.dtype)
     xb = h @ lp.w_x
-    xb = _causal_conv(xb, lp.conv_w, lp.conv_b)
+    xb = causal_conv(xb, lp.conv_w, lp.conv_b)
     if h0 is None:
         h0 = torch.zeros((B, cfg.lru_width), dtype=torch.float32, device=x.device)
     if cfg.ssm_impl == "kernel":

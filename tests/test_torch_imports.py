@@ -27,12 +27,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         # importing loads (and builds) no kernel
-        for mod in ("coded_combine", "flash_attention", "rglru_scan"):
+        for mod in ("coded_combine", "flash_attention", "rglru_scan", "ssd_scan"):
             lib = sys.modules["repro_torch.kernels." + mod]._lib
             assert lib.cache_info().currsize == 0, mod
         for mod in ("models.transformer", "models.rglru", "models.params",
                     "configs.qwen3_0_6b", "configs.recurrentgemma_9b",
-                    "launch.serve"):
+                    "launch.serve", "models.mamba2", "models.losses",
+                    "kernels.ssd_scan", "configs.mamba2_1_3b", "optim.sgd",
+                    "optim.schedules", "data.lm", "checkpoint.npz",
+                    "distributed.plain", "launch.train"):
             assert "repro_torch." + mod in names, mod
         print(len(names))
         """

@@ -20,6 +20,15 @@ float32 attention 1e-5 (scores and softmax in f32 on both sides, other
 summation orders); bf16 attention 2e-2 (a few bf16 ulps of the bf16
 output); the scan 1e-6 * S normwise (the reference's doubling scan and
 the port's step-by-step loop round differently, error growing with S).
+
+The SSD scan (K4): ``ops.ssd_scan`` (on the CPU: the sequential plain
+version) and ``ref.ssd_scan_ref`` against `repro.kernels.ref.ssd_scan_ref`
+and `repro.kernels.ops.ssd_scan` (Pallas, interpret mode) over the grid of
+``tests/test_kernels.py`` (including the padded S = 200), at the reference's
+TOL in f32 and bf16. In f64 against the oracle at 1e-12: the oracle casts to
+float32 (and its scan carry raises on float64 ``dt``), so it runs with its
+module's ``jnp`` replaced by a view whose ``float32`` is ``float64``; no
+file of `repro` changes.
 """
 
 import jax.numpy as jnp
@@ -40,6 +49,8 @@ from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
 from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
 TOL = {
     "float32": dict(rtol=1e-5, atol=1e-5),
@@ -340,3 +351,106 @@ def test_new_kernel_wrappers_refuse_cpu_and_other_devices():
         t_ops.flash_attention(t.to("meta"), t.to("meta"), t.to("meta"))
     with pytest.raises(ValueError, match="no rglru-scan path"):
         t_ops.rglru_scan(a.to("meta"), a.to("meta"))
+
+
+def test_k3_and_k5_refuse_inputs_that_need_a_gradient():
+    """No backward kernel yet: under grad mode an input that requires a
+    gradient raises (before any launch), instead of an output that would
+    silently drop the gradient. Without grad mode the device check runs."""
+    t = torch.zeros(1, 8, 2, 64)
+    q = t.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward yet.*ROADMAP"):
+        flash_attention_kernel(q, t, t)
+    a = torch.zeros(1, 8, 4)
+    with pytest.raises(RuntimeError, match="no backward yet.*ROADMAP"):
+        rglru_scan_kernel(a, a, torch.zeros(1, 4, requires_grad=True))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            flash_attention_kernel(q, t, t)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            rglru_scan_kernel(a.requires_grad_(True), a)
+
+
+# ---- SSD scan (K4) ---------------------------------------------------------
+
+
+class _Jnp64:
+    """``jax.numpy`` with its ``float32`` name bound to ``float64``."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = _pair(rng.standard_normal((B, S, H, P)), dtype)
+    f = "float64" if dtype == "float64" else "float32"
+    dt = _pair(np.log1p(np.exp(rng.standard_normal((B, S, H)))), f)
+    A = _pair(-np.exp(rng.standard_normal(H)), f)
+    Bm = _pair(rng.standard_normal((B, S, N)) / np.sqrt(N), dtype)
+    Cm = _pair(rng.standard_normal((B, S, N)) / np.sqrt(N), dtype)
+    return [p[0] for p in (x, dt, A, Bm, Cm)], [p[1] for p in (x, dt, A, Bm, Cm)]
+
+
+SSD_CASES = [
+    (1, 128, 2, 16, 32, 64),
+    (2, 256, 4, 32, 64, 128),
+    (1, 200, 2, 16, 32, 64),  # padded path (S not a chunk multiple)
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_reference(B, S, H, P, N, chunk, dtype):
+    jx, tx = _ssd_inputs(B, S, H, P, N, dtype, S * H)
+    before = dict(SSD_LAUNCHES)
+    y, h = t_ops.ssd_scan(*tx, chunk=chunk)
+    ry, rh = t_ref.ssd_scan_ref(*tx)
+    assert SSD_LAUNCHES == before  # CPU tensors: the plain version
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+    wy, wh = r_ops.ssd_scan(*jx, chunk=chunk)
+    oy, oh = r_ref.ssd_scan_ref(*jx)
+    for got, want in ((y, wy), (h, wh), (y, oy), (h, oh)):
+        np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_f64_matches_oracle(monkeypatch, B, S, H, P, N, chunk):
+    monkeypatch.setattr(r_ref, "jnp", _Jnp64())
+    jx, tx = _ssd_inputs(B, S, H, P, N, "float64", S + H)
+    y, h = t_ops.ssd_scan(*tx, chunk=chunk)
+    oy, oh = r_ref.ssd_scan_ref(*jx)
+    assert y.dtype == h.dtype == torch.float64
+    np.testing.assert_allclose(_np(y), _np(oy), **TOL["float64"])
+    np.testing.assert_allclose(_np(h), _np(oh), **TOL["float64"])
+
+
+@pytest.mark.parametrize("S,chunk", [(256, 64), (200, 64), (45, 32)])
+def test_ssd_chunked_matches_reference_chunked(S, chunk):
+    """The port's plain chunked form (the gradient's path and the plain
+    model path) against the reference's, float32, with and without an
+    initial state: the reference's f32 TOL."""
+    from repro.models.mamba2 import ssd_chunked as r_chunked
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    B, H, P, N = 2, 4, 8, 16
+    jx, tx = _ssd_inputs(B, S, H, P, N, "float32", S)
+    h0 = np.random.default_rng(1).standard_normal((B, H, P, N)).astype(np.float32)
+    for j0, t0 in ((None, None), (jnp.asarray(h0), torch.from_numpy(h0))):
+        y, h = ssd_chunked(*tx, chunk, t0)
+        wy, wh = r_chunked(*jx, chunk, j0)
+        np.testing.assert_allclose(_np(y), _np(wy), **TOL["float32"])
+        np.testing.assert_allclose(_np(h), _np(wh), **TOL["float32"])
+
+
+def test_ssd_scan_kernel_wrapper_refuses_cpu_and_other_devices():
+    _, (x, dt, A, Bm, Cm) = _ssd_inputs(1, 8, 2, 4, 8, "float32", 0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ssd_scan_kernel(x, dt, A, Bm, Cm, 4)
+    meta = [t.to("meta") for t in (x, dt, A, Bm, Cm)]
+    with pytest.raises(ValueError, match="no ssd-scan path"):
+        t_ops.ssd_scan(*meta, chunk=4)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3, K5) against their plain PyTorch
-versions, on a card.
+"""The port's CUDA kernels (K1-K5) against their plain PyTorch versions,
+on a card.
 
 Marked ``gpu``: each test skips without a CUDA device (the kernels have no
 CPU or interpret mode). This file imports neither JAX nor `repro`, so it
@@ -10,7 +10,13 @@ runs on a GPU machine that has only PyTorch:
 (``--noconftest``: the suite's conftest configures JAX.) Tolerances are
 the reference's kernel-test levels, by output dtype: 1e-12 in f64, 1e-5
 in f32, 2e-2 in bf16 (only the update's bf16-rounded output; the combine
-of bf16 messages returns f32 and is held at f32 round-off).
+of bf16 messages returns f32 and is held at f32 round-off). The SSD scan
+(K4) is held normwise (max |kernel - plain| <= tol * max(max |plain|, 1))
+against the sequential recurrence run in float64 on the same input values
+(the exact answer), at 1e-5 for float32 and bf16 inputs alike: the kernel
+reads bf16 exactly and computes in float32, so only its float32 round-off
+shows (a float32 plain version would add its own, growing with S). Its
+gradient is held against autograd of the plain ``ssd_chunked`` at 1e-6.
 """
 
 import numpy as np
@@ -133,3 +139,82 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, W, with_h0):
     # Same sequential recurrence; only FMA contraction differs.
     np.testing.assert_allclose(_np(h), _np(want_h), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(h_last), _np(want_last), rtol=1e-5, atol=1e-5)
+
+
+SSD_TOL = 1e-5
+
+
+def _normwise(got: torch.Tensor, want: torch.Tensor) -> float:
+    scale = max(want.double().abs().max().item(), 1.0)
+    return (got.double() - want.double()).abs().max().item() / scale
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed + S * H)
+    x = torch.randn(B, S, H, P, generator=g).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g))
+    Bm = (torch.randn(B, S, N, generator=g) / N**0.5).to(dtype)
+    Cm = (torch.randn(B, S, N, generator=g) / N**0.5).to(dtype)
+    return [t.to(device) for t in (x, dt, A, Bm, Cm)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [
+        (2, 1024, 8, 64, 128, 256),  # mamba2-1.3b heads, 4 chunks
+        (1, 1000, 4, 64, 128, 256),  # ragged S: the last chunk is partial
+        (2, 96, 8, 32, 16, 32),  # the mamba2 smoke config
+        (1, 200, 2, 16, 32, 64),  # small, ragged
+    ],
+)
+def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N, chunk):
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, TORCH[dtype], cuda)
+    before = SSD["ssd_scan"]
+    y, h = t_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD["ssd_scan"] == before + 1
+    want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert _normwise(y, want_y) <= SSD_TOL
+    assert _normwise(h, want_h) <= SSD_TOL
+
+
+@pytest.mark.gpu
+def test_ssd_scan_gradient_on_the_card_is_autograd_of_ssd_chunked(cuda):
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    inputs = _ssd_inputs(2, 300, 4, 64, 128, torch.float32, cuda, seed=5)
+    a = [t.clone().requires_grad_(True) for t in inputs]
+    b = [t.clone().requires_grad_(True) for t in inputs]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    gy = torch.randn(2, 300, 4, 64, generator=g).to(cuda)
+    gh = torch.randn(2, 4, 64, 128, generator=g).to(cuda)
+    y, h = t_ops.ssd_scan(*a, chunk=128)
+    torch.autograd.backward([y, h], [gy, gh])
+    y2, h2 = ssd_chunked(*b, 128)
+    torch.autograd.backward([y2, h2], [gy, gh])
+    for name, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
+        assert ta.grad is not None and torch.isfinite(ta.grad).all(), name
+        assert _normwise(ta.grad, tb.grad) <= 1e-6, name
+
+
+@pytest.mark.gpu
+def test_k3_and_k5_refuse_inputs_that_need_a_gradient(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_ops.flash_attention(q, k, k)
+    a = torch.rand(1, 8, 32, device=cuda)
+    b = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        t_ops.rglru_scan(a, b)
+    with torch.no_grad():  # serving: no gradient, the kernels run
+        assert t_ops.flash_attention(q, k, k).shape == q.shape
+        assert t_ops.rglru_scan(a, b)[0].shape == b.shape

@@ -1,4 +1,5 @@
-"""The port's serving models against the reference's.
+"""The port's models against the reference's: serving (prefill, decode)
+for the dense, hybrid and ssm families.
 
 `repro` builds each smoke model and initialises it with
 ``init(jax.random.key(0))``; `repro_torch.models.from_reference` carries
@@ -78,6 +79,9 @@ CASES = [
     ("recurrentgemma-9b", "plain", 2, 70),
     ("qwen3-0.6b", "plain", 1, 2048),
     ("recurrentgemma-9b", "plain", 1, 2048),
+    # S = 70 is ragged against mamba2's 32-step chunk (dt = 0 padding)
+    ("mamba2-1.3b", "kernel", 2, 70),
+    ("mamba2-1.3b", "plain", 2, 70),
 ]
 
 
@@ -135,10 +139,10 @@ def test_unported_archs_and_families_raise():
         get_config("mixtral-8x22b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
-    ssm = ModelConfig(name="s", family="ssm", n_layers=1, d_model=8, vocab=8,
-                      ssm_state=4, ssm_heads=2)
+    audio = ModelConfig(name="a", family="audio", n_layers=1, d_model=8, vocab=8,
+                        n_heads=2, n_kv_heads=1, d_ff=8, encoder_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        empty_model(ssm, "cpu")
+        empty_model(audio, "cpu")
     moe = ModelConfig(name="m", family="moe", n_layers=1, d_model=8, vocab=8, n_heads=2,
                       n_kv_heads=1, d_ff=8, n_experts=2, experts_per_token=1)
     with pytest.raises(NotImplementedError, match="MoE"):
@@ -170,7 +174,15 @@ def test_init_follows_reference_scales(arch):
         assert torch.equal(pa, pb), name
         assert not pa.requires_grad
     assert abs(a.embed.std().item() - 0.02) < 2e-3
-    if arch == "recurrentgemma-9b":
+    if arch == "mamba2-1.3b":
+        blk = a.layers[0]
+        ref = r_get_model(r_smoke_config(arch)).init(jax.random.key(0))["layers"]
+        for name in ("A_log", "dt_bias", "D_skip"):  # exact, float32
+            assert getattr(blk, name).dtype == torch.float32
+            assert np.array_equal(getattr(blk, name).numpy(), np.asarray(ref[name][0])), name
+        assert abs(blk.conv_w.std().item() - 0.2) < 0.03
+        assert abs(blk.w_out.std().item() - 0.02 / cfg.n_layers**0.5) < 2e-3
+    elif arch == "recurrentgemma-9b":
         blk = a.rec[0][0]
         assert torch.equal(blk.lru_ba, torch.full_like(blk.lru_ba, 2.0))
         assert torch.equal(getattr(blk, "lambda"), torch.ones_like(blk.lru_ba))
