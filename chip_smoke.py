@@ -12,8 +12,11 @@ Phases (any failure raises, exits non-zero and prints no result):
               sm_90a, one process per source, all at once) and print the
               build times and ptxas reports.
 2. kernels  — every kernel against its plain PyTorch version on the card,
-              with times from CUDA events and torch.profiler, the card's
-              bound, the plain version's time and, where one PyTorch call
+              with times from CUDA events and torch.profiler (which must
+              see the kernel by name), the card's bound, the share of it
+              reached (bound / device time), the achieved rate (TFLOP/s
+              where operations bound the kernel, TB/s where bytes do),
+              the plain version's time and, where one PyTorch call
               computes the same function, that call's time:
               K1/K2 (coded combine) in f32, f64 and bf16, with NaN planted
               in dead message rows, at the fig5 step (R=16, J=6, n=3), the
@@ -22,7 +25,9 @@ Phases (any failure raises, exits non-zero and prints no result):
               `torch.bmm`; K3 (flash attention) at the qwen3-0.6b prefill
               step (B 4, S 2048, H 16, KV 8, hd 128) in bf16 and f32, with
               a 512 window, at a ragged S = 1000, and at the MQA hd 256 and
-              hd 64 instances, against `scaled_dot_product_attention`; K5
+              hd 64 instances, against `scaled_dot_product_attention`,
+              and (`[attention-scan]`) K3 in bf16 against SDPA at 8192
+              tokens over S = 512 .. 8192, causal and not; K5
               (RG-LRU scan) at the recurrentgemma-9b prefill step (B 2,
               S 2048, W 4096) with h0 and at a ragged S = 1000; K4 (SSD
               scan) at the mamba2-1.3b training step (B 2, S 4096, H 64,
@@ -38,7 +43,8 @@ Phases (any failure raises, exits non-zero and prints no result):
 5. serve-qwen3 — `repro_torch.launch.serve.serve` on qwen3-0.6b at full
               width and depth in bf16: batch 4, prompt 2048, 32 new tokens.
               K3 launches exactly once per layer of the one prefill (28)
-              and never in decode. Then, on the same weights: a profile
+              and never in decode. Then, on the same weights: a warm
+              prefill's wall time without the profiler, a profile
               of a warm prefill and of 3 decode steps (device busy share,
               top kernels), and the prefill's logits and cache on the
               kernel path held against the plain path on the card, in
@@ -106,6 +112,10 @@ KERNEL_SHAPES = {
     "usps_step": (9, 3, 640),
     "fleet_step": (4096, 16, 2560),
 }
+# The kernels' names as the profiler sees them (K3: the bf16 tensor-core
+# body and the f32 CUDA-core body).
+K12_KERNELS = ("coded_kernel",)
+K3_KERNELS = ("flash_attention_tc_kernel", "flash_attention_kernel")
 SOURCES = {
     "coded_admm_update": "src/repro_torch/kernels/csrc/coded_combine.cu",
     "coded_combine": "src/repro_torch/kernels/csrc/coded_combine.cu",
@@ -214,11 +224,12 @@ def device_us(ev) -> float:
     return dev_us
 
 
-def profiled_device_ms(fn, reps: int, *names: str):
+def profiled_device_ms(fn, reps: int, *names: str) -> float:
     """Device time per call of ``fn``: the time of the kernels whose name
     contains one of ``names`` (a kernel of several launches names each),
-    from torch.profiler, over ``reps`` calls; None if the profiler saw no
-    device time."""
+    from torch.profiler, over ``reps`` calls. Raises if no such kernel ran
+    under the profiler (a renamed kernel, or a profiler that sees no device
+    time), rather than returning nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -229,7 +240,11 @@ def profiled_device_ms(fn, reps: int, *names: str):
         device_us(ev) for ev in prof.key_averages()
         if any(n in ev.key for n in names) and device_us(ev) > 0
     )
-    return total / reps / 1e3 if total else None
+    if not total:
+        raise AssertionError(
+            f"the profiler saw no device time of a kernel named {names}"
+        )
+    return total / reps / 1e3
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -255,12 +270,31 @@ def kernel_inputs(R, J, n, dtype, seed):
     return msgs, coeffs, mask, x, y, z, tau, rho
 
 
-def bound(kind, R, J, n, dtype, alive_rows):
-    """(bound_ms, bound_by) for one call on this call's data: each input
-    read once, each output written once, over the memory rate. Dead message
-    rows need not be read (the kernel never loads them), so only the
-    ``alive_rows`` of the R * J count. 2 flops per alive message element
-    (+6 per output for the update) over the peak rate."""
+def roofline(row: dict, nbytes: float, flops: float, peak_flops: float) -> dict:
+    """Add to a kernel's row its bound (the larger of ``nbytes`` over the
+    memory rate and ``flops`` over ``peak_flops``), what bounds it, its
+    share of the bound (bound_ms / device_ms) and the rate it achieved:
+    TFLOP/s where operations bound it, TB/s where bytes do."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    by_bytes = t_bytes >= t_ops
+    row["bound_ms"] = t_bytes if by_bytes else t_ops
+    row["bound_by"] = "bytes" if by_bytes else "operations"
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+    seconds = row["device_ms"] * 1e-3
+    if by_bytes:
+        row["achieved_rate"], row["rate_unit"] = nbytes / seconds / 1e12, "TB/s"
+    else:
+        row["achieved_rate"], row["rate_unit"] = flops / seconds / 1e12, "TFLOP/s"
+    return row
+
+
+def coded_work(kind, R, J, n, dtype, alive_rows):
+    """(bytes, flops, peak flops) of one K1/K2 call on this call's data:
+    each input read once, each output written once. Dead message rows need
+    not be read (the kernel never loads them), so only the ``alive_rows``
+    of the R * J count. 2 flops per alive message element (+6 per output
+    for the update) at the accumulation type's peak rate."""
     from repro_torch.kernels.ref import compute_dtype
 
     ct = compute_dtype(dtype)
@@ -272,9 +306,7 @@ def bound(kind, R, J, n, dtype, alive_rows):
         flops += 6 * R * n
     else:
         nbytes += R * n * cs  # out in the accumulation dtype
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[ct] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, flops, PEAK_FLOPS[ct]
 
 
 def phase_build():
@@ -347,13 +379,11 @@ def phase_kernels():
                     dtype=str(dtype).replace("torch.", ""),
                     alive_rows=alive_rows, max_abs_err=err, tol=tol * scale,
                     ms=cuda_ms(kern, reps),
-                    device_ms=profiled_device_ms(kern, reps, "coded_kernel"),
+                    device_ms=profiled_device_ms(kern, reps, *K12_KERNELS),
                     plain_ms=cuda_ms(plain, reps),
                     library_ms=None if lib is None else cuda_ms(lib, reps),
                 )
-                row["bound_ms"], row["bound_by"] = bound(
-                    name, R, J, n, dtype, alive_rows
-                )
+                roofline(row, *coded_work(name, R, J, n, dtype, alive_rows))
                 log("[kernels] " + json.dumps(row))
                 rows.append(row)
                 hold(f"{name} {shape_name} {dtype}", out, want, tol)
@@ -499,17 +529,15 @@ def live_pairs(Sq: int, Skv: int, window, q_offset: int = 0) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_bound(B, S, H, KV, hd, window, dtype):
-    """(bound_ms, bound_by) of one K3 call: q, k, v read and out written
-    once; 4 hd flops per live (query, key) pair (QK^T and PV) at the peak
-    rate for products of the input type. The softmax's exponentials are
-    not counted."""
+def attention_work(B, S, H, KV, hd, window, dtype):
+    """(bytes, flops, peak flops) of one K3 call: q, k, v read and out
+    written once; 4 hd flops per live (query, key) pair (QK^T and PV) at
+    the peak rate for products of the input type. The softmax's
+    exponentials are not counted."""
     es = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * es
     flops = 4 * hd * live_pairs(S, S, window) * B * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_PRODUCT_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, flops, PEAK_PRODUCT_FLOPS[dtype]
 
 
 def phase_attention_kernels():
@@ -554,17 +582,48 @@ def phase_attention_kernels():
             max_abs_err=max_err(out, want), normwise_err=normwise_gap(out, want),
             tol=ATTN_TOL[dtype],
             ms=cuda_ms(kern, reps),
-            device_ms=profiled_device_ms(kern, reps, "flash_attention_kernel"),
+            device_ms=profiled_device_ms(kern, reps, *K3_KERNELS),
             plain_ms=cuda_ms(plain, 2),
             library_ms=cuda_ms(library, reps),
         )
-        row["bound_ms"], row["bound_by"] = attention_bound(B, S, H, KV, hd, window, dtype)
+        roofline(row, *attention_work(B, S, H, KV, hd, window, dtype))
         log("[kernels] " + json.dumps(row))
         rows.append(row)
         hold(f"flash_attention {shape_name}", out, want, ATTN_TOL[dtype])
         del q, k, v, qt, kt, vt, out, want
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_attention_scan():
+    """K3 in bf16 against SDPA over the sequence length at a fixed 8192
+    tokens (qwen3-0.6b's heads: H 16, KV 8, hd 128), causal and not: the
+    ratio of the two rates says whether K3 loses per tile or per CTA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    H, KV, hd = 16, 8, 128
+    for causal in (True, False):
+        for B, S in ((16, 512), (8, 1024), (4, 2048), (2, 4096), (1, 8192)):
+            g = torch.Generator(device="cuda").manual_seed(S)
+            q, k, v = (
+                torch.randn(B, S, n, hd, generator=g, device="cuda").to(torch.bfloat16)
+                for n in (H, KV, KV)
+            )
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            out = flash_attention_kernel(q, k, v, causal=causal)
+            want = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+            hold(f"attention scan S {S} causal {causal}", out, want, ATTN_TOL[torch.bfloat16])
+            t_k3 = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal), 20)
+            t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+            flops = 4 * hd * (live_pairs(S, S, None) if causal else S * S) * B * H
+            log("[attention-scan] " + json.dumps(dict(
+                causal=causal, B=B, S=S, ms=t_k3, library_ms=t_lib,
+                tflops=flops / t_k3 / 1e9, library_tflops=flops / t_lib / 1e9,
+                ratio=t_lib / t_k3)))
 
 
 def phase_scan_kernels():
@@ -589,8 +648,6 @@ def phase_scan_kernels():
         (h, h_last), (want_h, want_last) = kern(), plain()
         torch.cuda.synchronize()
         nbytes = (3 * B * S * W + (2 if with_h0 else 1) * B * W) * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * B * S * W / PEAK_FLOPS[torch.float32] * 1e3
         row = dict(
             name="rglru_scan", shape=shape_name, B=B, S=S, W=W, h0=with_h0,
             dtype="float32", max_abs_err=max(max_err(h, want_h), max_err(h_last, want_last)),
@@ -598,9 +655,8 @@ def phase_scan_kernels():
             ms=cuda_ms(kern, 20),
             device_ms=profiled_device_ms(kern, 20, "rglru_scan_kernel"),
             plain_ms=cuda_ms(plain, 2), library_ms=None,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
+        roofline(row, nbytes, 2 * B * S * W, PEAK_FLOPS[torch.float32])
         log("[kernels] " + json.dumps(row))
         rows.append(row)
         hold(f"rglru_scan {shape_name} h", h, want_h, SCAN_TOL)
@@ -610,8 +666,8 @@ def phase_scan_kernels():
     return rows
 
 
-def ssd_bound(B, S, H, P, N, chunk, dtype):
-    """(bound_ms, bound_by) of one K4 call: x, dt, A, B, C read and y, h_fin
+def ssd_work(B, S, H, P, N, chunk, dtype):
+    """(bytes, flops, peak flops) of one K4 call: x, dt, A, B, C read and y, h_fin
     written once; per chunk of qc steps 2 (N + P) flops per causal (i, j)
     pair (C B^T and its product with x) and 4 N P per step (the chunk's
     state and the carried-in term), at the peak rate for products of the
@@ -624,9 +680,7 @@ def ssd_bound(B, S, H, P, N, chunk, dtype):
         qc = min(chunk, S - c0)
         flops += 2 * (qc * (qc + 1) // 2) * (N + P) + 4 * qc * N * P
     flops *= B * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_PRODUCT_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return nbytes, flops, PEAK_PRODUCT_FLOPS[dtype]
 
 
 def phase_ssd_kernels():
@@ -676,7 +730,7 @@ def phase_ssd_kernels():
                 plain_ms=cuda_ms(plain, 1), chunked_ms=cuda_ms(chunked, 3),
                 library_ms=None,
             )
-        row["bound_ms"], row["bound_by"] = ssd_bound(B, S, H, P, N, chunk, dtype)
+        roofline(row, *ssd_work(B, S, H, P, N, chunk, dtype))
         log("[kernels] " + json.dumps(row))
         rows.append(row)
         for label, (wy, wh), tol in (
@@ -742,9 +796,22 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill)
     result = dict(prefill_s=r["prefill_s"], decode_ms_per_token=r["decode_s_per_tok"] * 1e3,
                   launches=launches)
     with torch.inference_mode():
+        # A warm prefill's wall time without the profiler (median of 3,
+        # synchronised): the profiled wall below includes the profiler's
+        # own host time.
+        logits, cache = model.prefill(prompts, extra_slots=new_tokens)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(prompts, extra_slots=new_tokens)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        result["warm_prefill_ms"] = float(np.median(walls))
+        log(f"[{label}] warm prefill (no profiler, median of 3): "
+            f"{result['warm_prefill_ms']:.2f} ms ({', '.join(f'{w:.2f}' for w in walls)})")
         # Where the time goes, warm, under the profiler (which adds host
         # time of its own): one prefill, then three decode steps.
-        logits, cache = model.prefill(prompts, extra_slots=new_tokens)
         result["prefill_profile"] = profile_share(
             lambda: model.prefill(prompts, extra_slots=new_tokens))
         tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -1007,6 +1074,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     rows += phase_attention_kernels()
+    phase_attention_scan()
     rows += phase_scan_kernels()
     rows += phase_ssd_kernels()
     launches = phase_fig5()
@@ -1037,7 +1105,8 @@ def main() -> int:
             launches=launches[name],
             **{k: main_row[name][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "device_ms", "shape", "dtype",
+                "library_ms", "device_ms", "share_of_bound", "achieved_rate",
+                "rate_unit", "shape", "dtype",
             )},
         )
         for name in SOURCES

@@ -1,11 +1,14 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
-Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` at first use, keyed
-on a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. ``nvcc`` comes from ``$CUDA_HOME/bin``, the
-``PATH``, or the toolkit's default prefix, in that order. Nothing here
-imports or runs at module import time.
+Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` at first use. The
+hash covers everything the compile reads from the repository: the source,
+every local header it includes (``#include "x.cuh"`` under ``csrc/``,
+followed recursively), the global ``NVCC_FLAGS`` and the source's own
+``EXTRA_FLAGS``. An edited source or header rebuilds; an unchanged one is
+reused. ``nvcc`` comes from ``$CUDA_HOME/bin``, the ``PATH``, or the
+toolkit's default prefix, in that order. Nothing here imports or runs at
+module import time.
 """
 
 from __future__ import annotations
@@ -14,10 +17,12 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
+from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "build", "load"]
+__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "BUILD_DIR", "build", "build_key", "flags", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -26,6 +31,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # register/spill report, kept in the .log beside the .so
 )
+# Flags of one source only, appended after NVCC_FLAGS (none yet: the
+# tensor maps of flash_attention.cu reach the driver through the runtime,
+# so nothing links libcuda).
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {}
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -40,20 +52,49 @@ def _nvcc() -> str:
     )
 
 
+def local_headers(src: pathlib.Path) -> List[pathlib.Path]:
+    """The headers ``src`` includes with quotes, resolved beside the file
+    that includes them, recursively, in first-seen order. A quoted include
+    that is not a file there (a toolkit header) is left to nvcc."""
+    seen: List[pathlib.Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop()
+        for inc in _LOCAL_INCLUDE.findall(cur.read_text()):
+            path = (cur.parent / inc).resolve()
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
+def build_key(src: pathlib.Path, flags: Sequence[str]) -> str:
+    """Hash of what compiling ``src`` with ``flags`` reads: the source, its
+    local headers (by name and content) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_headers(src):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update(b"\0" + "\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for ``csrc/<name>.cu``: the global ones, then its own."""
+    return (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
+
+
 def build(name: str) -> pathlib.Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists;
-    returns the shared library's path."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source, its
+    headers and flags exists; returns the shared library's path."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{key}.so"
+    nvcc_flags = flags(name)
+    lib = BUILD_DIR / f"lib{name}_{build_key(src, nvcc_flags)}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *nvcc_flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -1,12 +1,13 @@
 // Flash attention (online softmax): causal, sliding window, GQA, for Hopper.
 //
 // Replaces the TPU Pallas kernel of src/repro/kernels/flash_attention.py:
-//   flash_attention_kernel (:98, body _body :33) -> flash_attention_launch
+//   flash_attention_kernel (:98, pl.pallas_call :130, body _body :33)
+//     -> flash_attention_launch
 //
 // What it computes, for every batch b, query head h and query row i, with
 // qpos = i + q_offset and kv head g = h * KV / H (GQA: the K/V heads are
 // read in place, never expanded to H):
-//   s_j   = (q_i . k_j) / sqrt(hd)   where the key j is live, else -1e30;
+//   s_j   = (q_i . k_j) / sqrt(hd)   where the key j is live, else masked;
 //           live = j < Skv, (!causal or j <= qpos), (!window or j > qpos - window)
 //   out_i = sum_j softmax(s)_j v_j, returned in q's dtype.
 // Scores, the running max m, the running denominator l and the output
@@ -20,28 +21,87 @@
 // Bound on this card: operations. The band needs 4 * hd flops per live
 // (query, key) pair: at the qwen3-0.6b prefill step (B 4, S 2048, H 16,
 // hd 128, causal) about 69 GFLOP against about 100 MB of q/k/v/out, far
-// above the H100's flop:byte balance. This first kernel runs on the CUDA
-// cores in float32 (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s
-// bf16): wgmma/TMA are later work.
+// above the H100's flop:byte balance, so the tensor cores' 989 TFLOP/s
+// (bf16) set the bound: 0.07 ms.
 //
-// Design: one block of 256 threads per (b, h, 64-row query tile). The
-// query tile (pre-scaled, float32) stays in shared memory; 64-row key and
-// value tiles stream through one shared buffer, converted to float32 on
-// the way in. Only the key tiles that meet the causal/window band of the
-// query tile are visited; the band's edge is masked per element. Thread
-// (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16 i (i < 4): for
-// the scores, key columns tx + 16 j (j < 4), reading q and k four floats
-// at a time; for the output, columns 4 tx + 64 c. A row's 64 scores live
-// in one half-warp, so its max and sum are shuffle reductions; the
-// probabilities pass through shared memory to the P.V product. The ragged
-// edges of Sq and Skv are masked here, so callers never pad.
+// Two bodies, chosen by dtype alone (no fallback from one to the other):
+//
+// * bfloat16 -> flash_attention_tc_kernel, on the tensor cores (hd 64,
+//   128, 256). The first design ran both products as float32
+//   FMAs on the CUDA cores (67 TFLOP/s peak), converted every K/V element
+//   to float32 on a synchronous load into one buffer shared by K and V
+//   (four __syncthreads() per key tile, no load overlapping any math),
+//   passed the probabilities through shared memory and pre-scaled q in
+//   float32: 23 TFLOP/s, 20x slower than SDPA at the qwen3 step. This one:
+//   - one CTA per (b, h, 128-query tile); the CTAs of
+//     the late (heavy, under causal masking) query tiles launch first;
+//   - two warpgroups of 64 query rows each and no producer warp: ptxas
+//     (CUDA 12.9) sizes a wgmma kernel's registers for whole warpgroups and
+//     held a CTA with a producer (384 or 288 threads) to 168 registers a
+//     thread whatever setmaxnreg asked, which spilled the pipelined
+//     consumers (O, S and two sets of P: about 200 at hd 128). At 256
+//     threads each may take 255. The consumers issue the loads: thread 0
+//     loads q and fills the ring, and whichever warpgroup is done with a
+//     stage second refills it (a per-stage count of releases, odd =
+//     second), so neither waits for the other;
+//   - q (once) and K/V tiles (128 keys; 64 at hd 256) arrive by TMA from
+//     4-d tensor maps (hd, heads, S, B) with 128-byte swizzle, into a
+//     ring of three stages (two at hd 256, for shared memory) whose
+//     arrival is awaited on mbarriers; keys past Skv (and
+//     query rows past Sq) are zero-filled by the hardware, never read
+//     from the next batch;
+//   - S = Q K^T by wgmma (bf16 in, f32 accumulate) from shared memory,
+//     both operands K-major as they lie, one m64n128k16 a k-step for
+//     128-key tiles (two n64 products would read A from shared memory
+//     twice: at N = 64 the reads alone take the SM's shared-memory rate);
+//     1/sqrt(hd) (with log2 e, for ex2) is applied to the f32 scores in
+//     the FMA that feeds ex2, never to q before rounding;
+//   - the mask is applied only on key tiles that cross the band's or the
+//     ragged edge; interior tiles skip the compares;
+//   - the online softmax stays in registers: a row lives in the four
+//     lanes of a quad of wgmma's accumulator layout, so its max is two
+//     shuffles and its sum is reduced once, at the end;
+//   - O += P V by wgmma (m64n128k16 a key slice per 128 columns of O)
+//     with P rounded to bf16 in registers as the A operand (the
+//     accumulator layout maps onto it) and V read from shared memory
+//     N-major with the transpose bit, never transposed in memory. Rounding P to bf16 costs about 2e-3 normwise, within the
+//     2e-2 bf16 tolerance;
+//   - each consumer pipelines across key tiles, as FA3 does: it issues
+//     S = Q K^T of tile i and O += P V of tile i - 1 together, and runs
+//     the softmax of tile i on the CUDA cores while the P V product runs
+//     on the tensor cores (P of tiles i - 1 and i in two register sets);
+//     the two consumer warpgroups interleave on their own;
+//   - the epilogue divides by l and stores bf16 pairs of the valid rows.
+// * float32 -> flash_attention_kernel, the first design's CUDA-core body,
+//   unchanged: it beats SDPA in float32 (2.9 against 6.5 ms at the qwen3
+//   step), and the tensor cores would need TF32, which cannot meet the
+//   float32 tolerance of 1e-5. One block of 256 threads per (b, h, 64-row
+//   query tile); the query tile (pre-scaled, float32) stays in shared
+//   memory; 64-row key and value tiles stream through one shared buffer,
+//   converted to float32 on the way in. Thread (ty, tx) = (tid / 16,
+//   tid % 16) owns query rows ty + 16 i (i < 4): for the scores, key
+//   columns tx + 16 j (j < 4); for the output, columns 4 tx + 64 c. A
+//   row's 64 scores live in one half-warp, so its max and sum are shuffle
+//   reductions; the probabilities pass through shared memory to the P.V
+//   product.
+//
+// Both bodies visit only the key tiles that meet the causal/window band
+// of the query tile, and mask the ragged edges of Sq and Skv themselves,
+// so callers never pad.
 //
 // C interface (loaded with ctypes): pointers and the stream as void*, and
-// the entry returns cudaGetLastError() right after the launch.
+// the entry returns cudaGetLastError() right after the launch (or an
+// error code of its own when a tensor map cannot be encoded). The tensor
+// maps are encoded per call on the host by cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library does not link
+// libcuda.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -56,13 +116,7 @@ static_assert(kBQ == kBK, "load_tile copies kBQ rows for both tiles");
 enum DType : int { kF32 = 0, kBF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -254,15 +308,407 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int KV, int64_t Sq, int64_t Skv, int causal, int64_t window,
-           int64_t q_offset, void* stream) {
+// ---- bfloat16: the tensor-core body ---------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;           // query rows per CTA
+constexpr int kThreads = 256;      // two warpgroups of 64 query rows each
+constexpr int kBoxCols = 64;       // bf16 columns per TMA box: 128 bytes
+constexpr int kRowBytes = 128;     // one box row, one swizzle row
+constexpr int kAtomBytes = 1024;   // 8 rows x 128 bytes: one swizzle atom
+
+template <int HD>
+struct Cfg {
+  static constexpr int kBK = HD <= 128 ? 128 : 64;  // keys per tile
+  static constexpr int kStages = HD <= 128 ? 3 : 2;  // K/V ring depth
+  static constexpr int kChunks = HD / kBoxCols;     // boxes across hd
+  static constexpr int kQBytes = kBQ * HD * 2;
+  static constexpr int kTileBytes = kBK * HD * 2;   // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  // + kAtomBytes: slack to align the ring on a swizzle atom
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes + kAtomBytes;
+  static_assert(kSmem + 64 <= 232448, "shared memory of one CTA (+ barriers)");
+};
+
+// Row-major bf16 pair (low half = lower column), the A-fragment packing.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ int clamp_i32(int64_t v) {
+  return static_cast<int>(v < -(1LL << 30) ? -(1LL << 30)
+                          : v > (1LL << 30) ? (1LL << 30) : v);
+}
+
+// Grid: one CTA per (query tile, b, h), 1-d, the last query tiles first.
+// Shared memory: Q as kChunks boxes of [128 rows][64 cols], then per stage
+// K and V as kChunks boxes of [kBK rows][64 cols] each, every box 128-byte
+// swizzled by TMA and starting on a 1024-byte boundary.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ out, int B, int H,
+                          int KV, int64_t Sq, int64_t Skv, int causal,
+                          int64_t window, int64_t q_offset, int n_qtiles,
+                          float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int kBK = C::kBK;
+  constexpr int kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_q, bar_full[kStages];
+  __shared__ unsigned released[kStages];  // warpgroups done with a stage, ever
+
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((kAtomBytes - raw % kAtomBytes) % kAtomBytes);
+  uint8_t* Qs = base;
+  uint8_t* ring = base + C::kQBytes;
+
+  const int bh = blockIdx.x % (B * H);
+  const int q_tile = n_qtiles - 1 - blockIdx.x / (B * H);
+  const int h = bh % H, b = bh / H;
+  const int g = static_cast<int>(static_cast<int64_t>(h) * KV / H);
+  const int64_t q_row0 = static_cast<int64_t>(q_tile) * kBQ;
+
+  // Key tiles that meet the band of this query tile (its valid rows).
+  const int64_t q_lo = q_row0 + q_offset;
+  const int64_t q_hi = (q_row0 + kBQ < Sq ? q_row0 + kBQ : Sq) - 1 + q_offset;
+  int64_t k_min = 0, k_max = Skv - 1;
+  if (causal && q_hi < k_max) k_max = q_hi;
+  if (window > 0 && q_lo - window + 1 > k_min) k_min = q_lo - window + 1;
+  const int t_first = static_cast<int>(k_min / kBK);
+  const int t_last = k_max >= k_min ? static_cast<int>(k_max / kBK) : t_first - 1;
+
+  const int n_tiles = t_last - t_first + 1;
+  // Loads tile i (key tile t_first + i) into stage i % kStages by TMA.
+  auto load_tile = [&](int i) {
+    const int s = i % kStages;
+    uint8_t* Ks = ring + s * C::kStageBytes;
+    uint8_t* Vs = Ks + C::kTileBytes;
+    const int row = (t_first + i) * kBK;
+    sm90::mbar_arrive_expect_tx(&bar_full[s], C::kStageBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      sm90::tma_load_4d(Ks + c * kBK * kRowBytes, &tk, &bar_full[s],
+                        c * kBoxCols, g, row, b);
+      sm90::tma_load_4d(Vs + c * kBK * kRowBytes, &tv, &bar_full[s],
+                        c * kBoxCols, g, row, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&bar_full[s], 1);
+      released[s] = 0;
+    }
+    sm90::fence_barrier_init();
+    // Q, and the first tiles into the empty ring.
+    sm90::mbar_arrive_expect_tx(&bar_q, C::kQBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c)
+      sm90::tma_load_4d(Qs + c * kBQ * kRowBytes, &tq, &bar_q, c * kBoxCols,
+                        h, static_cast<int>(q_row0), b);
+    for (int i = 0; i < kStages && i < n_tiles; ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  // ---- warpgroup cw owns query rows 64 cw .. 64 cw + 63 -----------------
+  const int cw = threadIdx.x / 128;
+  // The stage of tile i_prev is free once both warpgroups are past their
+  // P V product on it: whichever gets there second refills it with tile
+  // i_prev + kStages, so neither waits for the other.
+  auto release = [&](int i_prev) {
+    sm90::named_barrier_sync(1 + cw, 128);  // every warp of this warpgroup
+    if (threadIdx.x % 128 == 0 &&
+        (atomicAdd(&released[i_prev % kStages], 1u) & 1u) &&
+        i_prev + kStages < n_tiles)
+      load_tile(i_prev + kStages);
+  };
+  const int lane = threadIdx.x % 32;
+  const int r0 = 64 * cw + 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // and r0 + 8
+  const int c0 = 2 * (lane % 4);  // first of this thread's column pairs
+
+  // O in pieces of kON columns, one P V wgmma each per key slice; o[p][i]
+  // is row r0 + 8 ((i / 2) % 2), column kON p + 8 (i / 4) + c0 + i % 2.
+  constexpr int kON = HD < 128 ? HD : 128;
+  float o[HD / kON][kON / 2];
+#pragma unroll
+  for (int p = 0; p < HD / kON; ++p)
+#pragma unroll
+    for (int i = 0; i < kON / 2; ++i) o[p][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = sm90::smem_u32(Qs) + 64 * cw * kRowBytes;
+  const uint32_t ring_addr = sm90::smem_u32(ring);
+  const int64_t qpos0 = q_row0 + q_offset + r0;  // row r0; r0 + 8 adds 8
+  const int win = window > 0 ? clamp_i32(window) : 0;
+
+  // S = Q K^T of the tile in stage s: hd / 16 steps of k16, each one wgmma
+  // over all kBK keys (issued, not waited for). sc[i] is row r0 + 8 ((i / 2)
+  // % 2), key column 8 (i / 4) + c0 + i % 2 of the tile.
+  float sc[kBK / 2];
+  // Descriptors: one per operand base, advanced by compile-time offsets
+  // (in 16-byte units, the address field's own).
+  const uint64_t q_desc = sm90::desc_b128(q_addr, 16, kAtomBytes);
+  auto issue_qk = [&](int s) {
+    const uint64_t k_desc =
+        sm90::desc_b128(ring_addr + s * C::kStageBytes, 16, kAtomBytes);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk % 4) * 32;  // bytes into the 128-byte row
+      const uint64_t da = q_desc + (((kk / 4) * kBQ * kRowBytes + off) >> 4);
+      const uint64_t db = k_desc + (((kk / 4) * kBK * kRowBytes + off) >> 4);
+      if constexpr (kBK == 128)
+        sm90::wgmma_m64n128k16_ss(sc, da, db, kk > 0);
+      else
+        sm90::wgmma_m64n64k16_ss(sc, da, db, kk > 0);
+    }
+  };
+  // O += P V of the tile in stage s, P from registers (issued, not waited).
+  auto issue_pv = [&](int s, const uint32_t (&pa)[kBK / 16][4]) {
+    // V is N-major: SBO is the stride between 8-key groups (one atom; 16
+    // keys = two atoms down the tile) and LBO the stride between 64-column
+    // atoms (one TMA box; a piece of 128 columns spans two). The other
+    // reading of the two fields faults on the card.
+    const uint64_t v_desc = sm90::desc_b128(
+        ring_addr + s * C::kStageBytes + C::kTileBytes, kBK * kRowBytes,
+        kAtomBytes);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int p = 0; p < HD / kON; ++p) {
+        const uint64_t db = v_desc + (((kON / 64) * p * kBK * kRowBytes +
+                                       kk * 16 * kRowBytes) >> 4);
+        if constexpr (kON == 128)
+          sm90::wgmma_m64n128k16_rs_tb(o[p], pa[kk], db);
+        else
+          sm90::wgmma_m64n64k16_rs_tb(o[p], pa[kk], db);
+      }
+  };
+  // The online softmax of the scores in sc (key tile t), in the log2
+  // domain: masked only where the tile crosses an edge; m (scaled) and l
+  // advance; alpha rescales what O held; P = 2^(s scale - m) in one FMA and
+  // one ex2, rounded to bf16 as wgmma's A fragments, key slice by key
+  // slice (l sums the unrounded p, each thread over its own columns).
+  auto softmax = [&](int t, uint32_t (&pa)[kBK / 16][4], float (&alpha)[2]) {
+    const int64_t k0 = static_cast<int64_t>(t) * kBK;
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q_lo) ||
+                      (win > 0 && k0 <= q_hi - win);
+    if (edge) {
+      const int d0 = clamp_i32(qpos0 - k0);     // qpos - kpos at (r0, col 0)
+      const int kv_left = clamp_i32(Skv - k0);  // live columns: col < kv_left
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int col = 8 * (e / 4) + c0 + (e % 2);
+        const int d = d0 + 8 * ((e / 2) % 2) - col;
+        const bool live = col < kv_left && (!causal || d >= 0) &&
+                          (win == 0 || d < win);
+        if (!live) sc[e] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e)
+      mx[(e / 2) % 2] = fmaxf(mx[(e / 2) % 2], sc[e]);
+    float mu[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with nothing live yet
+      alpha[r] = sm90::exp2_ftz(m[r] - mu[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 8 * kk + 2 * j;  // pair (e, e + 1): keys 16 kk + ...
+        const int r = j % 2;
+        const float p0 = sm90::exp2_ftz(fmaf(sc[e], scale_log2, -mu[r]));
+        const float p1 = sm90::exp2_ftz(fmaf(sc[e + 1], scale_log2, -mu[r]));
+        l[r] += p0 + p1;
+        pa[kk][j] = pack_bf16(p0, p1);
+      }
+  };
+  // Compiler fences on the registers a wgmma reads or writes (no code):
+  // only around the waits and issues of the wgmmas that use them.
+  auto fence_s = [&] { sm90::fence_regs(sc); };
+  auto fence_pv = [&](uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+    for (int p = 0; p < HD / kON; ++p) sm90::fence_regs(o[p]);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) sm90::fence_regs(pa[kk]);
+  };
+
+  // Software pipeline across key tiles: while the softmax of tile i runs
+  // on the CUDA cores, O += P V of tile i - 1 runs on the tensor cores.
+  uint32_t pa[kBK / 16][4], pn[kBK / 16][4];  // P of tile i - 1 and of tile i
+  float alpha[2];
+  sm90::mbar_wait(&bar_q, 0);
+  if (n_tiles > 0) {
+    sm90::mbar_wait(&bar_full[0], 0);
+    fence_s();
+    sm90::wgmma_fence();
+    issue_qk(0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_s();
+    softmax(t_first, pa, alpha);  // O is still zero: alpha is moot
+  }
+  for (int i = 1; i < n_tiles; ++i) {
+    const int s = i % kStages, s_prev = (i - 1) % kStages;
+    sm90::mbar_wait(&bar_full[s], (i / kStages) & 1);
+    fence_s();
+    fence_pv(pa);
+    sm90::wgmma_fence();
+    issue_qk(s);
+    sm90::wgmma_commit();
+    issue_pv(s_prev, pa);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 runs on
+    fence_s();
+    softmax(t_first + i, pn, alpha);
+    sm90::wgmma_wait<0>();
+    fence_pv(pa);
+    release(i - 1);  // K and V of tile i - 1 are done with
+#pragma unroll
+    for (int p = 0; p < HD / kON; ++p)
+#pragma unroll
+      for (int e = 0; e < kON / 2; ++e) o[p][e] *= alpha[(e / 2) % 2];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pn[kk][j];
+  }
+  if (n_tiles > 0) {
+    const int s_last = (n_tiles - 1) % kStages;
+    fence_pv(pa);
+    sm90::wgmma_fence();
+    issue_pv(s_last, pa);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_pv(pa);
+  }
+
+  // Epilogue: out = O / max(l, 1e-30) in bf16, valid rows only.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t row = q_row0 + r0 + 8 * r;
+    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    if (row >= Sq) continue;
+    __nv_bfloat16* o_row =
+        out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD;
+#pragma unroll
+    for (int p = 0; p < HD / kON; ++p)
+#pragma unroll
+      for (int e = 2 * r; e < kON / 2; e += 4) {  // pairs (e, e + 1) of row r
+        const int col = kON * p + 8 * (e / 4) + c0;
+        *reinterpret_cast<uint32_t*>(o_row + col) =
+            pack_bf16(o[p][e] * inv, o[p][e + 1] * inv);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that nothing links
+// libcuda; the driver's own signature.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, heads, hd) tensor as the 4-d map (hd, heads, S, B) with
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; rows
+// past S read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads,
+                int64_t S, int B, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(heads) * hd * 2,
+                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
+
+// Error codes of this library beyond cudaError_t's range.
+constexpr int kErrTensorMap = 100000;
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
+              int H, int KV, int64_t Sq, int64_t Skv, int causal,
+              int64_t window, int64_t q_offset, void* stream) {
+  using C = tc::Cfg<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!tc::encode_map(&tq, q, HD, H, Sq, B, tc::kBQ) ||
+      !tc::encode_map(&tk, k, HD, KV, Skv, B, C::kBK) ||
+      !tc::encode_map(&tv, v, HD, KV, Skv, B, C::kBK))
+    return kErrTensorMap;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      tc::flash_attention_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t n_qtiles = (Sq + tc::kBQ - 1) / tc::kBQ;
+  const int64_t n_ctas = n_qtiles * B * H;
+  if (n_ctas > 2147483647 || Sq > (1LL << 30) || Skv > (1LL << 30))
+    return cudaErrorInvalidValue;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  tc::flash_attention_tc_kernel<HD><<<static_cast<unsigned>(n_ctas),
+                                      tc::kThreads, C::kSmem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, H, KV, Sq, Skv, causal,
+      window, q_offset, static_cast<int>(n_qtiles), scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- float32: launch of the CUDA-core body --------------------------------
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int KV, int64_t Sq, int64_t Skv, int causal,
+               int64_t window, int64_t q_offset, void* stream) {
   constexpr size_t kSmem = smem_bytes<HD>();
   // Above 48 KB of dynamic shared memory needs an opt-in (per device, so
   // it is set on every launch rather than once per process).
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
+      flash_attention_kernel<float, HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int64_t n_tiles = (Sq + kBQ - 1) / kBQ;
@@ -270,28 +716,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(n_tiles), H, B);
   const float sm_scale = 1.f / sqrtf(static_cast<float>(HD));
-  flash_attention_kernel<T, HD><<<grid, kThreads, kSmem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), B, H, KV, Sq, Skv,
-      causal, window, q_offset, sm_scale);
+  flash_attention_kernel<float, HD><<<grid, kThreads, kSmem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), B, H, KV, Sq,
+      Skv, causal, window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, int B, int H, int KV, int64_t Sq, int64_t Skv,
-                int causal, int64_t window, int64_t q_offset, void* stream) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
+template <int HD>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int H, int KV, int64_t Sq, int64_t Skv, int causal,
+           int64_t window, int64_t q_offset, void* stream) {
+  switch (dtype) {
+    case kF32:
+      return launch_f32<HD>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
+                            q_offset, stream);
+    case kBF16:
+      return launch_tc<HD>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
                            q_offset, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
-                            q_offset, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
-                            q_offset, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -308,19 +751,25 @@ int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
                            int64_t window, int64_t q_offset, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1)
     return cudaErrorInvalidValue;
-  switch (dtype) {
-    case kF32:
-      return dispatch_hd<float>(hd, q, k, v, out, B, H, KV, Sq, Skv, causal,
-                                window, q_offset, stream);
-    case kBF16:
-      return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, KV, Sq, Skv,
-                                        causal, window, q_offset, stream);
+  switch (hd) {
+    case 64:
+      return launch<64>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+                        window, q_offset, stream);
+    case 128:
+      return launch<128>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+                         window, q_offset, stream);
+    case 256:
+      return launch<256>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+                         window, q_offset, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 const char* flash_attention_error_string(int err) {
+  if (err == kErrTensorMap)
+    return "cuTensorMapEncodeTiled failed or is unavailable (bf16 q, k or v: "
+           "base 16-byte aligned, hd in {64, 128, 256})";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

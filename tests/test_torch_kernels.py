@@ -454,3 +454,40 @@ def test_ssd_scan_kernel_wrapper_refuses_cpu_and_other_devices():
     meta = [t.to("meta") for t in (x, dt, A, Bm, Cm)]
     with pytest.raises(ValueError, match="no ssd-scan path"):
         t_ops.ssd_scan(*meta, chunk=4)
+
+
+def test_build_key_follows_included_headers_and_per_source_flags(tmp_path, monkeypatch):
+    """The library's hash changes when a local header that the source
+    includes (directly or through another header) or one of its flags
+    changes, and not when an unrelated file does; nvcc is not needed."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "inc").mkdir()
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "inc/a.cuh"\nint f();\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text("#pragma once\nint g();\n")
+    (tmp_path / "other.cuh").write_text("int h();\n")
+    flags = _build.NVCC_FLAGS
+    assert [p.name for p in _build.local_headers(src)] == ["a.cuh", "b.cuh"]
+    key = _build.build_key(src, flags)
+    assert _build.build_key(src, flags) == key
+    (tmp_path / "other.cuh").write_text("int h2();\n")
+    assert _build.build_key(src, flags) == key
+    (tmp_path / "inc" / "b.cuh").write_text("#pragma once\nint g2();\n")
+    key_b = _build.build_key(src, flags)
+    assert key_b != key
+    assert _build.build_key(src, (*flags, "-I/usr/local/cutlass/include")) != key_b
+    assert _build.build_key(src, (*flags, "-lcuda")) != key_b
+    # The package's own sources: K3 includes the sm90 header, and a flag
+    # added for K3 alone moves K3's key and no other source's.
+    k3 = _build.CSRC / "flash_attention.cu"
+    assert [p.name for p in _build.local_headers(k3)] == ["sm90.cuh"]
+    before = {n: _build.build_key(_build.CSRC / f"{n}.cu", _build.flags(n))
+              for n in ("flash_attention", "coded_combine")}
+    monkeypatch.setitem(_build.EXTRA_FLAGS, "flash_attention", ("-lcuda",))
+    assert _build.flags("flash_attention")[-1] == "-lcuda"
+    after = {n: _build.build_key(_build.CSRC / f"{n}.cu", _build.flags(n))
+             for n in before}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["coded_combine"] == before["coded_combine"]

@@ -50,25 +50,56 @@ def cuda():
     return torch.device("cuda")
 
 
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``offset`` elements into
+    its buffer: offset 1 misaligns the base for 16-byte vector loads."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
-@pytest.mark.parametrize("R,J,n", [(16, 6, 3), (9, 3, 640), (3, 16, 5001)])
-def test_cuda_kernels_match_plain_version(cuda, dtype, R, J, n):
+@pytest.mark.parametrize(
+    "R,J,n,offset",
+    [
+        (16, 6, 3, 0),  # fig5's step: n below every vector width
+        (9, 3, 640, 0),  # USPS width: vectors in every dtype
+        (3, 16, 5001, 0),  # ragged n, J at its maximum
+        (4, 1, 22, 0),  # J = 1; ijcnn1's n = 22, not a multiple of 4 or 8
+        (6, 1, 640, 0),  # J = 1 with vectors
+        (5, 16, 4096, 0),  # J = 16 with vectors
+        (3, 3, 640, 1),  # a misaligned base pointer: the scalar instance
+        (4, 16, 5001, 1),  # misaligned and ragged
+    ],
+)
+def test_cuda_kernels_match_plain_version(cuda, dtype, R, J, n, offset):
     """On the card: kernel == plain version (same tolerances), NaN in dead
-    rows dropped, launch counters advance by one per call."""
+    rows dropped (row 0 of every run when J > 1, and every row of the last
+    run), launch counters advance by one per call."""
     dt = TORCH[dtype]
     ct = t_ref.compute_dtype(dt)
-    g = torch.Generator(device="cpu").manual_seed(R * J * n)
+    g = torch.Generator(device="cpu").manual_seed(R * J * n + offset)
     msgs = torch.randn(R, J, n, generator=g).to(dt)
     coeffs = torch.randn(R, J, generator=g).to(ct)
     mask = (torch.rand(R, J, generator=g) > 0.3).float()
-    mask[:, 0] = 0.0
-    msgs[:, 0] = float("nan")
+    if J > 1:
+        mask[:, 0] = 0.0
+        msgs[:, 0] = float("nan")
+    mask[-1] = 0.0  # a run whose rows are all dead ...
+    msgs[-1] = float("nan")  # ... and poisoned
     x, y, z = (torch.randn(R, n, generator=g).to(dt) for _ in range(3))
     tau = torch.rand(R, generator=g).to(ct) + 0.5
     rho = torch.rand(R, generator=g).to(ct) + 0.5
     cpu_args = (msgs, coeffs, x, y, z, tau, rho, mask)
     dev_args = tuple(a.to(cuda) for a in cpu_args)
+    if offset:
+        dev_args = tuple(
+            _at_offset(a, offset) if i in (0, 2, 3, 4) else a
+            for i, a in enumerate(dev_args)
+        )
+        assert dev_args[0].data_ptr() % 16 != 0
     before = dict(LAUNCHES)
     got_u = t_ops.coded_admm_update(*dev_args)
     got_c = t_ops.coded_combine(dev_args[0], dev_args[1], dev_args[7])
@@ -79,6 +110,7 @@ def test_cuda_kernels_match_plain_version(cuda, dtype, R, J, n):
     want_c = t_ref.coded_combine_ref(dev_args[0], dev_args[1], dev_args[7])
     assert got_u.dtype == dt and got_c.dtype == ct
     assert torch.isfinite(got_u).all() and torch.isfinite(got_c).all()
+    assert (got_c[-1] == 0).all()  # nothing alive: G = 0
     np.testing.assert_allclose(_np(got_u), _np(want_u), **TOL[dtype])
     np.testing.assert_allclose(
         _np(got_c), _np(want_c), **TOL[str(ct).removeprefix("torch.")]
@@ -97,6 +129,17 @@ FA_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, ato
         (1, 16, 1, 200, 200, 256, 64, 0),  # recurrentgemma MQA, window
         (2, 4, 2, 67, 131, 64, None, 64),  # ragged, offset into the keys
         (1, 8, 8, 100, 100, 128, 1, 0),  # window 1: the diagonal only
+        # The bf16 tensor-core body's edges (128-query tiles; 128-key tiles,
+        # 64 at hd 256):
+        (1, 4, 2, 1000, 1000, 64, None, 0),  # ragged Sq = Skv, q_per_kv 2
+        (1, 4, 2, 1000, 1000, 128, None, 0),
+        (1, 2, 1, 1000, 1000, 256, None, 0),  # MQA
+        (2, 4, 2, 67, 131, 128, None, 64),  # ragged, offset, Skv > Sq
+        (2, 4, 1, 67, 131, 256, None, 64),
+        (1, 16, 1, 256, 256, 128, None, 0),  # MQA at hd 128
+        (1, 4, 4, 300, 300, 128, 40, 0),  # window under one key tile
+        (1, 4, 1, 300, 300, 256, 40, 0),
+        (2, 8, 4, 200, 520, 64, 100, 320),  # offset, window, Skv > Sq
     ],
 )
 def test_flash_attention_kernel_matches_plain_version(
