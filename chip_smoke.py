@@ -9,8 +9,10 @@ toolkit (nvcc):
 Phases (any failure raises, exits non-zero and prints no result):
 
 1. build    — compile the CUDA sources of `repro_torch.kernels` (nvcc,
-              sm_90a, one process per source, all at once) and print the
-              build times and ptxas reports.
+              sm_90a, one process per source, all at once), print the
+              build times and ptxas reports, and count each K4 kernel's
+              HGMMA instructions in `cuobjdump -sass` (the tensor-core
+              body's two kernels must issue some).
 2. kernels  — every kernel against its plain PyTorch version on the card,
               with times from CUDA events and torch.profiler (which must
               see the kernel by name), the card's bound, the share of it
@@ -29,11 +31,19 @@ Phases (any failure raises, exits non-zero and prints no result):
               and (`[attention-scan]`) K3 in bf16 against SDPA at 8192
               tokens over S = 512 .. 8192, causal and not; K5
               (RG-LRU scan) at the recurrentgemma-9b prefill step (B 2,
-              S 2048, W 4096) with h0 and at a ragged S = 1000; K4 (SSD
+              S 2048, W 4096) with h0, at a ragged S = 1000 and at
+              S = 2049 (one step past a multiple of its chunk); K4 (SSD
               scan) at the mamba2-1.3b training step (B 2, S 4096, H 64,
-              P 64, N 128, chunk 256) in bf16 and f32, at a ragged
-              S = 1000 and at a small shape, against the sequential
-              recurrence in f64 (exact), in f32, and the chunked form.
+              P 64, N 128, chunk 256) in bf16 with each body (the
+              CUDA-core body that training runs; the tensor-core body in
+              the `_tc` rows, also with a head at A = -16 and at chunk 128
+              and 64)
+              and in f32, at a ragged S = 1000 and at a small shape,
+              against the sequential recurrence in f64 (exact), in f32,
+              and the chunked form. K4 and K5 have several launches a
+              call: a `[kernels] ssd_scan passes` line gives each pass's
+              device time, and the passes must account for all the
+              device time of the call.
 3. fig5     — the paper's fig5 sweep at its registry defaults (1200 iters,
               S in {0,1,2,3} x 4 seeds = 16 runs) through `run_sweep` on
               the GPU in f64, held per run against the same sweep on the
@@ -53,14 +63,18 @@ Phases (any failure raises, exits non-zero and prints no result):
               new tokens): K5 launches once per recurrent layer (26).
 7. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
               parameters), batch 2 x 4096 tokens, remat "full": the loss
-              and every parameter's gradient on the kernel path (K4) held
-              against the plain path (``ssd_chunked``) from the same
-              weights and batch, in bf16 and widened to f32, with K4's
-              launches counted (2 per layer: forward and recomputation;
-              none on the plain path); then 5 Adam steps through the
-              training entry point (`repro_torch.launch.train.main`) in
-              bf16, with per-step losses, the warm step time, peak device
-              memory and a profile of one more warm step.
+              and every parameter's gradient on the kernel path (K4's
+              CUDA-core body) held against the plain path
+              (``ssd_chunked``) from the same weights and batch, in bf16
+              and widened to f32, with K4's launches counted (2 per
+              layer: forward and recomputation; none on the plain path);
+              then 5 Adam steps through the training entry point
+              (`repro_torch.launch.train.main`) in bf16, with per-step
+              losses, the warm step time, peak device memory and a
+              profile of one more warm step, in which each pass of the
+              CUDA-core body runs 96 times (and the tensor-core body's
+              never). Every profile names the port's kernels on its
+              path.
 8. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
               prompt 256) and the recurrentgemma smoke config: prefill
               and 3 decode steps on the card (kernels) held against the
@@ -146,21 +160,35 @@ ATTN_SHAPES = {
 SCAN_SHAPES = {
     "rg_step": (2, 2048, 4096, True),
     "ragged1000": (2, 1000, 4096, False),
+    "ragged2049": (2, 2049, 4096, True),  # one step past a multiple of the chunk
 }
+# K5's launches, as the profiler names them.
+K5_KERNELS = ("rglru_scan_reset_kernel", "rglru_scan_kernel")
 # Kernel vs plain version on the card, normwise: K3 in f32 at f32
 # round-off (other summation orders), in bf16 at a few bf16 ulps of the
 # output (both read the same bf16 inputs and score in f32); K5 is the same
 # sequential recurrence, only FMA contraction differs.
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 1e-5
-# K4 shapes: (B, S, H, P, N, chunk, dtype). The first two are the
-# mamba2-1.3b training step of [train-mamba2].
+# K4 shapes: (B, S, H, P, N, chunk, dtype, body). The first two are the
+# mamba2-1.3b training step of [train-mamba2] on the body that training
+# runs, the CUDA-core one; the "_tc" rows are the tensor-core body
+# (`ssd_scan_tc_kernel`), which training does not take yet (PERF.md).
 SSD_SHAPES = {
-    "train_step": (2, 4096, 64, 64, 128, 256, torch.bfloat16),
-    "train_step_f32": (2, 4096, 64, 64, 128, 256, torch.float32),
-    "ragged1000": (2, 1000, 64, 64, 128, 256, torch.bfloat16),
-    "small": (1, 200, 2, 16, 32, 64, torch.float32),
+    "train_step": (2, 4096, 64, 64, 128, 256, torch.bfloat16, "cuda_cores"),
+    "train_step_f32": (2, 4096, 64, 64, 128, 256, torch.float32, "cuda_cores"),
+    "ragged1000": (2, 1000, 64, 64, 128, 256, torch.bfloat16, "cuda_cores"),
+    "small": (1, 200, 2, 16, 32, 64, torch.float32, "cuda_cores"),
+    "train_step_tc": (2, 4096, 64, 64, 128, 256, torch.bfloat16, "tensor_cores"),
+    "ragged1000_tc": (2, 1000, 64, 64, 128, 256, torch.bfloat16, "tensor_cores"),
+    "train_step_a16_tc": (2, 4096, 64, 64, 128, 256, torch.bfloat16, "tensor_cores"),
+    "chunk128_tc": (2, 4096, 64, 64, 128, 128, torch.bfloat16, "tensor_cores"),
+    "chunk64_tc": (2, 4096, 64, 64, 128, 64, torch.bfloat16, "tensor_cores"),
 }
+# Shapes whose head 0 has A = -16, mamba2-1.3b's fastest decay (A_log =
+# log 16): its 256-step chunks sum a_t to thousands, where a decay factor
+# taken as a difference of cumulative sums loses its digits.
+SSD_A16 = ("train_step_a16_tc",)
 # K4 against the exact answer (the sequential recurrence in f64 on the same
 # input values) and against its f32 plain versions on the card (the
 # sequential recurrence and the chunked form), normwise, for both input
@@ -224,9 +252,37 @@ def device_us(ev) -> float:
     return dev_us
 
 
+def profiled_device_times(fn, reps: int, *names: str):
+    """Device time per call of ``fn`` by kernel name, from torch.profiler
+    over ``reps`` calls: ({name: ms} for each of ``names`` (a kernel of
+    several passes names each; a name matches every kernel whose name
+    contains it), the ms of every kernel that ran). Raises if one of
+    ``names`` saw no device time (a renamed kernel, or a profiler that sees
+    no device time), rather than returning nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {n: 0.0 for n in names}
+    every = 0.0
+    for ev in prof.key_averages():
+        if device_us(ev) <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        every += device_us(ev)
+        for n in names:
+            if n in ev.key:
+                by_name[n] += device_us(ev)
+    missing = [n for n, us in by_name.items() if not us]
+    if missing:
+        raise AssertionError(f"the profiler saw no device time of a kernel named {missing}")
+    return {n: us / reps / 1e3 for n, us in by_name.items()}, every / reps / 1e3
+
+
 def profiled_device_ms(fn, reps: int, *names: str) -> float:
     """Device time per call of ``fn``: the time of the kernels whose name
-    contains one of ``names`` (a kernel of several launches names each),
+    contains one of ``names`` (a kernel with a body per dtype names each),
     from torch.profiler, over ``reps`` calls. Raises if no such kernel ran
     under the profiler (a renamed kernel, or a profiler that sees no device
     time), rather than returning nothing."""
@@ -245,6 +301,22 @@ def profiled_device_ms(fn, reps: int, *names: str) -> float:
             f"the profiler saw no device time of a kernel named {names}"
         )
     return total / reps / 1e3
+
+
+def pass_times(label: str, fn, reps: int, names) -> dict:
+    """Per-pass device ms of a kernel of several launches (every one of
+    ``names`` must run) and their sum as ``device_ms``. Raises unless the
+    passes account for all the device time of the call (within 1%): a
+    launch under another name would drop out of ``device_ms`` and make the
+    share of the bound read high."""
+    passes, every = profiled_device_times(fn, reps, *names)
+    total = sum(passes.values())
+    if abs(total - every) > 0.01 * every:
+        raise AssertionError(
+            f"{label}: the named passes {passes} sum to {total:.4f} ms, the call's "
+            f"kernels to {every:.4f} ms"
+        )
+    return dict(passes=passes, device_ms=total, all_kernels_ms=every)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -329,6 +401,31 @@ def phase_build():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+    sass_check(built[names.index("ssd_scan")][0], ("ssd_scores_kernel", "ssd_scan_tc_kernel"))
+
+
+def sass_check(lib, tensor_core_kernels) -> dict:
+    """Count the tensor-core instructions (HGMMA, wgmma's SASS) of every
+    kernel in ``lib`` from ``cuobjdump -sass``; raise unless each of
+    ``tensor_core_kernels`` issues some."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    log(f"[build] {lib.name} HGMMA instructions by kernel (cuobjdump -sass): "
+        + json.dumps(counts))
+    for name in tensor_core_kernels:
+        if not any(name in fn and n > 0 for fn, n in counts.items()):
+            raise AssertionError(f"{name}: no HGMMA in its SASS")
+    return counts
 
 
 def phase_kernels():
@@ -648,12 +745,12 @@ def phase_scan_kernels():
         (h, h_last), (want_h, want_last) = kern(), plain()
         torch.cuda.synchronize()
         nbytes = (3 * B * S * W + (2 if with_h0 else 1) * B * W) * 4
+        times = pass_times(f"rglru_scan {shape_name}", kern, 20, K5_KERNELS)
         row = dict(
             name="rglru_scan", shape=shape_name, B=B, S=S, W=W, h0=with_h0,
             dtype="float32", max_abs_err=max(max_err(h, want_h), max_err(h_last, want_last)),
             normwise_err=normwise_gap(h, want_h), tol=SCAN_TOL,
-            ms=cuda_ms(kern, 20),
-            device_ms=profiled_device_ms(kern, 20, "rglru_scan_kernel"),
+            ms=cuda_ms(kern, 20), device_ms=times["device_ms"], passes=times["passes"],
             plain_ms=cuda_ms(plain, 2), library_ms=None,
         )
         roofline(row, nbytes, 2 * B * S * W, PEAK_FLOPS[torch.float32])
@@ -687,22 +784,26 @@ def phase_ssd_kernels():
     """K4 against the exact answer and its plain versions at every shape
     (no single PyTorch call computes the scan, so no library time)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan import KERNEL_NAMES, ssd_scan_kernel, ssd_scan_tc_kernel
     from repro_torch.models.mamba2 import ssd_chunked
 
+    wrapper = {"cuda_cores": ssd_scan_kernel, "tensor_cores": ssd_scan_tc_kernel}
+
     rows = []
-    for shape_name, (B, S, H, P, N, chunk, dtype) in SSD_SHAPES.items():
+    for shape_name, (B, S, H, P, N, chunk, dtype, kbody) in SSD_SHAPES.items():
         g = torch.Generator(device="cuda").manual_seed(S * H + P)
         x = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
         dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
         A = -torch.exp(torch.randn(H, generator=g, device="cuda"))
+        if shape_name in SSD_A16:
+            A[0] = -16.0
         Bm, Cm = (
             (torch.randn(B, S, N, generator=g, device="cuda") / N**0.5).to(dtype)
             for _ in range(2)
         )
 
         def kern():
-            return ssd_scan_kernel(x, dt, A, Bm, Cm, chunk)
+            return wrapper[kbody](x, dt, A, Bm, Cm, chunk)
 
         def plain():
             return ref.ssd_scan_ref(x, dt, A, Bm, Cm)
@@ -716,22 +817,28 @@ def phase_ssd_kernels():
             versus = {"ssd_scan_ref": plain(), "ssd_chunked": chunked()}
             torch.cuda.synchronize()
             gaps = {"exact_f64": max(normwise_gap(y, exact[0]), normwise_gap(h, exact[1]))}
+            if shape_name in SSD_A16:  # the A = -16 head alone
+                gaps["exact_f64_head0"] = max(normwise_gap(y[:, :, 0], exact[0][:, :, 0]),
+                                              normwise_gap(h[:, 0], exact[1][:, 0]))
             for name, (wy, wh) in versus.items():
                 gaps[name] = max(normwise_gap(y, wy), normwise_gap(h, wh))
+            times = pass_times(f"ssd_scan {shape_name}", kern, 10, KERNEL_NAMES[kbody])
             row = dict(
                 name="ssd_scan", shape=shape_name, B=B, S=S, H=H, P=P, N=N, chunk=chunk,
-                dtype=str(dtype).replace("torch.", ""),
+                dtype=str(dtype).replace("torch.", ""), body=kbody,
+                A_min=A.min().item(),
                 max_abs_err=max(max_err(y, versus["ssd_scan_ref"][0]),
                                 max_err(h, versus["ssd_scan_ref"][1])),
                 normwise_err=gaps, tol=dict(SSD_PLAIN_TOL, exact_f64=SSD_EXACT_TOL),
-                ms=cuda_ms(kern, 10),
-                device_ms=profiled_device_ms(
-                    kern, 10, "chunk_state_kernel", "state_pass_kernel", "chunk_output_kernel"),
+                ms=cuda_ms(kern, 10), device_ms=times["device_ms"],
                 plain_ms=cuda_ms(plain, 1), chunked_ms=cuda_ms(chunked, 3),
                 library_ms=None,
             )
         roofline(row, *ssd_work(B, S, H, P, N, chunk, dtype))
         log("[kernels] " + json.dumps(row))
+        log("[kernels] ssd_scan passes " + json.dumps(dict(
+            shape=shape_name, body=kbody, device_ms=times["device_ms"],
+            all_kernels_ms=times["all_kernels_ms"], passes=times["passes"])))
         rows.append(row)
         for label, (wy, wh), tol in (
             ("exact f64", exact, SSD_EXACT_TOL),
@@ -739,6 +846,9 @@ def phase_ssd_kernels():
         ):
             hold(f"ssd_scan {shape_name} y vs {label}", y, wy.to(y.dtype), tol)
             hold(f"ssd_scan {shape_name} h_fin vs {label}", h, wh.to(h.dtype), tol)
+        if shape_name in SSD_A16:
+            hold(f"ssd_scan {shape_name} head 0 (A = -16) y vs exact f64",
+                 y[:, :, 0], exact[0][:, :, 0].to(y.dtype), SSD_EXACT_TOL)
         del x, dt, A, Bm, Cm, y, h, exact, versus
         torch.cuda.empty_cache()
     return rows
@@ -761,7 +871,7 @@ def read_launches(counters) -> dict:
     return {k: v for c in counters for k, v in c.items()}
 
 
-def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill):
+def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill, names):
     """Serve ``arch`` at full size in bf16 through the entry point, with
     the launch counts read around the run, then hold the prefill's kernel
     path against its plain path on the card. Returns the launches."""
@@ -813,7 +923,7 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill)
         # Where the time goes, warm, under the profiler (which adds host
         # time of its own): one prefill, then three decode steps.
         result["prefill_profile"] = profile_share(
-            lambda: model.prefill(prompts, extra_slots=new_tokens))
+            lambda: model.prefill(prompts, extra_slots=new_tokens), named=names)
         tok = logits[:, -1].argmax(-1, keepdim=True)
 
         def decode3():
@@ -821,7 +931,7 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill)
             for _ in range(3):
                 c = model.decode_step(c, tok)[1]
 
-        result["decode_profile"] = profile_share(decode3)
+        result["decode_profile"] = profile_share(decode3, named=names)
         del cache
         log(f"[{label}] profile (warm): " + json.dumps(
             {k: result[k] for k in ("prefill_profile", "decode_profile")}))
@@ -850,10 +960,11 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, kernel, per_prefill)
     return result
 
 
-def profile_share(fn, top: int = 5) -> dict:
+def profile_share(fn, top: int = 5, named=()) -> dict:
     """Wall ms of ``fn`` (synchronised) under torch.profiler, the device's
-    busy ms (sum of its kernels' and copies' device time) and the
-    ``top`` kernels by device time."""
+    busy ms (sum of its kernels' and copies' device time), the ``top``
+    kernels by device time and, for each of ``named`` (the port's kernels
+    on this path), its device ms and launches whether in the top or not."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -863,13 +974,19 @@ def profile_share(fn, top: int = 5) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = []
+    mine = {n: dict(ms=0.0, launches=0) for n in named}
     for ev in prof.key_averages():
         if device_us(ev) > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_name.append((device_us(ev) / 1e3, ev.count, ev.key[:70]))
+            for n in named:
+                if n in ev.key:
+                    mine[n]["ms"] += device_us(ev) / 1e3
+                    mine[n]["launches"] += ev.count
     busy = sum(ms for ms, _, _ in by_name)
     by_name.sort(reverse=True)
     return dict(wall_ms=wall, device_busy_ms=busy, busy_share=busy / wall,
-                top=[dict(name=n, ms=ms, launches=c) for ms, c, n in by_name[:top]])
+                top=[dict(name=n, ms=ms, launches=c) for ms, c, n in by_name[:top]],
+                kernels=mine)
 
 
 def grad_gap(got: dict, want: dict):
@@ -890,6 +1007,7 @@ def phase_train_mamba2():
     from repro_torch.configs import get_config
     from repro_torch.data import agent_token_streams, make_lm_batch
     from repro_torch.distributed import PlainRuntime
+    from repro_torch.kernels.ssd_scan import KERNEL_NAMES
     from repro_torch.launch import train
     from repro_torch.models import get_model
 
@@ -961,8 +1079,15 @@ def phase_train_mamba2():
     rt = PlainRuntime(run["model"], lr=3e-4)
     state = run["state"]
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_lm_batch(stream, B, S).items()}
-    prof = profile_share(lambda: rt.train_step(state, batch), top=8)
+    prof = profile_share(lambda: rt.train_step(state, batch), top=8,
+                         named=[n for names in KERNEL_NAMES.values() for n in names])
     log("[train-mamba2] profile of one warm step: " + json.dumps(prof))
+    # K4's CUDA-core body runs each of its passes 2 L times; the tensor-core
+    # body, never.
+    k4 = {n: v["launches"] for n, v in prof["kernels"].items()}
+    want = {n: (2 * L if n in KERNEL_NAMES["cuda_cores"] else 0) for n in k4}
+    if k4 != want:
+        raise AssertionError(f"train-mamba2 profiled step: K4 launches {k4}, want {want}")
     result.update(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
                   launches_per_step=launches["ssd_scan"] // steps)
     del run, rt, state, batch
@@ -1079,8 +1204,10 @@ def main() -> int:
     rows += phase_ssd_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()
-    qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28)
-    rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26)
+    qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28,
+                       K3_KERNELS)
+    rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26,
+                     K5_KERNELS)
     mamba = phase_train_mamba2()
     phase_card_vs_cpu()
     phase_card_vs_cpu_train()

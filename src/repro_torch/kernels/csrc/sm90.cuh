@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors and the bf16 m64n64k16 wgmma
-// in its two operand forms. Included by the kernel sources under csrc/;
+// loads, cp.async, ldmatrix, the 128-byte swizzle, wgmma shared-memory
+// descriptors and the bf16 wgmma (N 64 and 128) in its two operand forms. Included by the kernel sources under csrc/;
 // a change here rebuilds every source that includes it (the build key
 // hashes the local headers a source includes).
 #pragma once
@@ -71,6 +71,45 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- cp.async, ldmatrix, proxy fence --------------------------------------
+
+// 16 bytes global -> shared, asynchronously; `valid` false writes zeros
+// (src-size 0: nothing is read, `src` need only be a mapped address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes (stores, cp.async) visible to
+// the async proxy (wgmma operands); then a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices, transposed: lane L gives the address of row L % 8
+// of matrix L / 8; r[m] of thread t holds row t / 4, columns 2 (t % 4) and
+// 2 (t % 4) + 1 of matrix m's transpose (low half the lower column).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// Byte offset of 16-byte piece `piece` (0..7) of row `row` in a tile of
+// 128-byte rows stored with the 128-byte swizzle (TMA's SWIZZLE_128B,
+// what desc_b128 describes), from a 1024-byte-aligned base.
+__device__ __forceinline__ uint32_t swz128(int row, int piece) {
+  return static_cast<uint32_t>(row) * 128u + static_cast<uint32_t>((piece ^ (row & 7)) * 16);
 }
 
 // ---- wgmma ----------------------------------------------------------------

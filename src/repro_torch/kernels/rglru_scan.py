@@ -3,11 +3,13 @@
 Counterpart of the TPU kernel `repro.kernels.rglru_scan`
 (``rglru_scan_kernel``); the CUDA source, its bound and its design are in
 ``csrc/rglru_scan.cu``. It computes h_t = a_t * h_{t-1} + b_t over
-(B, S, W) float32 inputs from an initial state h0 (B, W) or zeros.
+(B, S, W) float32 inputs from an initial state h0 (B, W) or zeros, as a
+chained scan over chunks of S (a reset kernel, then the scan kernel).
 
 The wrapper only launches: contiguous float32 CUDA tensors, or it raises.
 `repro_torch.kernels.ops.rglru_scan` is the entry point that sends CPU
-tensors to the plain version. ``LAUNCHES`` counts launches.
+tensors to the plain version. ``LAUNCHES`` counts calls: one call is the
+reset and the scan.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "rglru_scan_kernel"]
+__all__ = ["LAUNCHES", "CHUNK_STEPS", "rglru_scan_kernel"]
 
 LAUNCHES: Dict[str, int] = {"rglru_scan": 0}
+CHUNK_STEPS = 32  # steps of S per block: kChunk of the source
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -30,8 +33,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
-    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I64, _I64, _P]
+    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _P]
     lib.rglru_scan_launch.restype = _I
+    lib.rglru_scan_scratch_bytes.argtypes = [_I, _I64, _I64]
+    lib.rglru_scan_scratch_bytes.restype = _I64
     lib.rglru_scan_error_string.argtypes = [_I]
     lib.rglru_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -76,11 +81,15 @@ def rglru_scan_kernel(
             )
     h = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
+    lib = _lib()
+    scratch = torch.empty(
+        lib.rglru_scan_scratch_bytes(B, S, W), dtype=torch.uint8, device=a.device
+    )
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib().rglru_scan_launch(
+        err = lib.rglru_scan_launch(
             a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-            h.data_ptr(), h_last.data_ptr(), B, S, W, stream,
+            h.data_ptr(), h_last.data_ptr(), scratch.data_ptr(), B, S, W, stream,
         )
     if err != 0:
         msg = _lib().rglru_scan_error_string(err).decode()

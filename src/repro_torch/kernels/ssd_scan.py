@@ -8,11 +8,26 @@ chunked form and returns y (B, S, H, P) and the final state h_fin
 (B, H, P, N), both float32. A ragged S (not a multiple of ``chunk``) is
 masked in the kernel, with the reference's dt = 0 padding semantics.
 
-The wrapper only launches: contiguous CUDA tensors, x/Bm/Cm in one of
+Two bodies, each with its own wrapper, never one for the other after a
+failure:
+
+- ``ssd_scan_kernel`` (``ssd_scan_launch``): three passes of float32
+  FMAs, every dtype and shape above. The model's kernel path
+  (`repro_torch.kernels.ops.ssd_scan`) runs this one.
+- ``ssd_scan_tc_kernel`` (``ssd_scan_tc_launch``): a scores pass and a
+  sequential pass per head on wgmma, for bfloat16 at P = 64, N = 128 and
+  chunk 64, 128 or 256 (mamba2-1.3b's heads), with x, Bm and Cm on
+  16-byte boundaries; it raises elsewhere. It meets the kernel's
+  tolerance against the exact answer, but not the bf16 training
+  comparison, which holds the kernel path to a forward that rounds as
+  ``ssd_chunked`` does (ROADMAP.md, Queue 3), so training does not take
+  it yet.
+
+The wrappers only launch: contiguous CUDA tensors, x/Bm/Cm in one of
 float32 or bfloat16, dt and A in float32, P <= 64, N <= 128 and
-1 <= chunk <= 1024, or it raises. `repro_torch.kernels.ops.ssd_scan` is
+1 <= chunk <= 1024, or they raise. `repro_torch.kernels.ops.ssd_scan` is
 the entry point (CPU tensors to the plain version, and the gradient).
-``LAUNCHES`` counts calls: one call is the kernel's three passes.
+``LAUNCHES`` counts calls, one key per body: one call is its passes.
 """
 
 from __future__ import annotations
@@ -25,10 +40,19 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "MAX_P", "MAX_N", "MAX_CHUNK", "ssd_scan_kernel"]
+__all__ = [
+    "LAUNCHES", "MAX_P", "MAX_N", "MAX_CHUNK", "KERNEL_NAMES", "TC_CHUNKS",
+    "ssd_scan_kernel", "ssd_scan_tc_kernel",
+]
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024  # the tiles of the source
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_tc": 0}
+# The CUDA kernels each body launches, as a profiler names them.
+KERNEL_NAMES = {
+    "tensor_cores": ("ssd_scores_kernel", "ssd_scan_tc_kernel"),
+    "cuda_cores": ("chunk_state_kernel", "state_pass_kernel", "chunk_output_kernel"),
+}
+TC_CHUNKS = (64, 128, 256)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -41,6 +65,10 @@ def _lib() -> ctypes.CDLL:
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P,
     ]
     lib.ssd_scan_launch.restype = _I
+    lib.ssd_scan_tc_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _P,
+    ]
+    lib.ssd_scan_tc_launch.restype = _I
     lib.ssd_scan_error_string.argtypes = [_I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,6 +108,20 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_tc(x, Bm, Cm, chunk: int) -> None:
+    """What the tensor-core body takes beyond `_check`: its one shape, and
+    x/Bm/Cm on 16-byte boundaries (it reads them with 16-byte loads)."""
+    P, N = x.shape[-1], Bm.shape[-1]
+    if not (x.dtype == torch.bfloat16 and (P, N) == (64, 128) and chunk in TC_CHUNKS):
+        raise ValueError(
+            f"the tensor-core body takes bfloat16 with P = 64, N = 128 and chunk "
+            f"in {TC_CHUNKS}, got {x.dtype}, P={P}, N={N}, chunk={chunk}"
+        )
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the tensor-core body needs {name} on a 16-byte boundary")
+
+
 def ssd_scan_kernel(
     x: torch.Tensor,  # (B, S, H, P) float32 | bfloat16
     dt: torch.Tensor,  # (B, S, H) float32, post-softplus
@@ -89,7 +131,7 @@ def ssd_scan_kernel(
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, H, P) f32, h_fin (B, H, P, N) f32), zero initial
-    state."""
+    state, from the CUDA-core body."""
     _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -106,8 +148,41 @@ def ssd_scan_kernel(
             Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
             states.data_ptr(), decay.data_ptr(), B, S, H, P, N, chunk, stream,
         )
+    _raise_on(err)
+    LAUNCHES["ssd_scan"] += 1
+    return y, h_fin
+
+
+def ssd_scan_tc_kernel(
+    x: torch.Tensor,  # (B, S, H, 64) bfloat16
+    dt: torch.Tensor,  # (B, S, H) float32, post-softplus
+    A: torch.Tensor,  # (H,) float32, negative
+    Bm: torch.Tensor,  # (B, S, 128) bfloat16
+    Cm: torch.Tensor,  # (B, S, 128) bfloat16
+    chunk: int,  # one of TC_CHUNKS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`ssd_scan_kernel`'s function from the tensor-core body."""
+    _check_tc(x, Bm, Cm, chunk)
+    _check(x, dt, A, Bm, Cm, chunk)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = -(-S // chunk)
+    dev = x.device
+    y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
+    h_fin = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    scores = torch.empty((B, nc, chunk, chunk), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ssd_scan_tc_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), h_fin.data_ptr(), scores.data_ptr(), B, S, H, chunk, stream,
+        )
+    _raise_on(err)
+    LAUNCHES["ssd_scan_tc"] += 1
+    return y, h_fin
+
+
+def _raise_on(err: int) -> None:
     if err != 0:
         msg = _lib().ssd_scan_error_string(err).decode()
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} ({msg})")
-    LAUNCHES["ssd_scan"] += 1
-    return y, h_fin

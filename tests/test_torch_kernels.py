@@ -456,6 +456,40 @@ def test_ssd_scan_kernel_wrapper_refuses_cpu_and_other_devices():
         t_ops.ssd_scan(*meta, chunk=4)
 
 
+def _at_odd_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_ssd_scan_tc_kernel_refuses_what_its_body_does_not_take():
+    """The tensor-core body's wrapper raises before any launch: another
+    dtype, P, N or chunk than mamba2-1.3b's bf16 heads, x/Bm/Cm off a
+    16-byte boundary (its 16-byte loads would fault on the card), and,
+    those met, CPU tensors."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES, ssd_scan_tc_kernel
+
+    before = dict(LAUNCHES)
+    _, good = _ssd_inputs(1, 64, 2, 64, 128, "bfloat16", 0)
+    _, f32 = _ssd_inputs(1, 64, 2, 64, 128, "float32", 0)
+    _, narrow_p = _ssd_inputs(1, 64, 2, 32, 128, "bfloat16", 0)
+    _, narrow_n = _ssd_inputs(1, 64, 2, 64, 64, "bfloat16", 0)
+    for args, chunk in ((f32, 64), (narrow_p, 64), (narrow_n, 64), (good, 32), (good, 512)):
+        with pytest.raises(ValueError, match="tensor-core body takes"):
+            ssd_scan_tc_kernel(*args, chunk)
+    for i, name in ((0, "x"), (3, "Bm"), (4, "Cm")):
+        args = list(good)
+        args[i] = _at_odd_offset(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"{name} on a 16-byte boundary"):
+            ssd_scan_tc_kernel(*args, 64)
+    for chunk in (64, 128, 256):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            ssd_scan_tc_kernel(*good, chunk)
+    assert LAUNCHES == before
+
+
 def test_build_key_follows_included_headers_and_per_source_flags(tmp_path, monkeypatch):
     """The library's hash changes when a local header that the source
     includes (directly or through another header) or one of its flags
@@ -491,3 +525,131 @@ def test_build_key_follows_included_headers_and_per_source_flags(tmp_path, monke
              for n in before}
     assert after["flash_attention"] != before["flash_attention"]
     assert after["coded_combine"] == before["coded_combine"]
+
+
+# ---- K4's split operands and K5's chunk pairs: the CUDA designs' arithmetic
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).to(torch.float64)
+
+
+def _split(v: torch.Tensor, parts: int) -> torch.Tensor:
+    """What a product sees of a float operand fed to bf16 tensor cores in
+    ``parts`` bf16 pieces: hi = bf16(v), lo = bf16(v - hi), ..."""
+    out = torch.zeros_like(v)
+    for _ in range(parts):
+        piece = _bf16(v - out)
+        out = out + piece
+    return out
+
+
+def _ssd_tc_emulation(x, dt, A, Bm, Cm, Q, parts):
+    """K4's tensor-core body in float64 arithmetic, except that the float
+    side of each product is rounded as the kernel rounds it (``_split``):
+    the masked, decayed, dt-scaled scores of the intra-chunk term, w B of
+    the chunk state, and h_in of the inter-chunk term. x, B and C are
+    bf16 values, used exactly."""
+    Bn, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((Bn, H, N, P), dtype=torch.float64)  # h^T, as the kernel
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, dtc = x[:, c0:c0 + Q], dt[:, c0:c0 + Q]
+        Bc, Cc = Bm[:, c0:c0 + Q], Cm[:, c0:c0 + Q]
+        q = xc.shape[1]
+        a = dtc * A  # (B, q, H)
+        cum = torch.cumsum(a, dim=1)  # (B, q, H)
+        # exp(sum_{j < t <= i} a_t) for j <= i: in f64 the difference of
+        # cumulative sums is exact to far below what is tested.
+        seg = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)  # (B, H, i, j)
+        causal = torch.tril(torch.ones(q, q, dtype=torch.bool))
+        L = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+        scores = torch.einsum("bin,bjn->bij", Cc, Bc)
+        M = scores[:, None] * L * dtc.permute(0, 2, 1)[:, :, None, :]  # (B, H, i, j)
+        y = torch.einsum("bhij,bjhp->bihp", _split(M, parts), xc)
+        y += torch.einsum("bin,bhnp->bihp", Cc, _split(h, parts)) * torch.exp(cum)[..., None]
+        rest = a.sum(1, keepdim=True) - cum  # sum_{t > j}
+        w = dtc * torch.exp(rest)  # (B, q, H)
+        wB = _split(w.permute(0, 2, 1)[..., None] * Bc[:, None], parts)  # (B, H, j, n)
+        h = h * torch.exp(a.sum(1))[..., None, None] + torch.einsum("bhjn,bjhp->bhnp", wB, xc)
+        ys.append(y)
+    return torch.cat(ys, 1), h.transpose(-1, -2)
+
+
+@pytest.mark.parametrize(
+    "parts,bound,within", [(1, 1e-5, False), (2, 1e-5, True), (3, 1e-7, True)]
+)
+def test_ssd_split_operands_meet_the_kernel_tolerance(parts, bound, within):
+    """K4's tensor-core body feeds the float side of each product to the
+    bf16 tensor cores in pieces. At mamba2-1.3b's chunk (Q 256, P 64,
+    N 128) over S = 1024 with a head at A = -16, against the exact f64
+    recurrence: one bf16 rounding misses the card's 1e-5 (chip_smoke's
+    SSD_EXACT_TOL); hi + lo meets it; the kernel's three parts come within
+    1e-7, so the split adds nothing beyond float32 round-off."""
+    rng = np.random.default_rng(15)
+    B, S, H, P, N, Q = 1, 1024, 2, 64, 128, 256
+    x = _bf16(torch.from_numpy(rng.standard_normal((B, S, H, P))))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((B, S, H))))).float().double()
+    A = torch.tensor([-16.0, -float(np.exp(rng.standard_normal()))], dtype=torch.float64)
+    Bm, Cm = (_bf16(torch.from_numpy(rng.standard_normal((B, S, N)) / np.sqrt(N)))
+              for _ in range(2))
+    want_y, want_h = t_ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+    y, h = _ssd_tc_emulation(x, dt, A, Bm, Cm, Q, parts)
+    scale = lambda t: max(t.abs().max().item(), 1.0)  # noqa: E731
+    gap = max((y - want_y).abs().max().item() / scale(want_y),
+              (h - want_h).abs().max().item() / scale(want_h))
+    assert (gap <= bound) == within, gap
+
+
+def _rglru_chained(a, b, h0, chunk, lookback):
+    """K5's chained scan in plain PyTorch: each chunk of ``chunk`` steps
+    reduced to the pair (prod a, h from 0); the state entering chunk k
+    composed from the chunks before it, as the kernel's look-back does
+    when it finds chunk k - 1's inclusive state ("nearest") or has to
+    compose every aggregate back to chunk 0 ("deepest"); then the
+    recurrence over the chunk from that state."""
+    B, S, W = a.shape
+    starts = list(range(0, S, chunk))
+    pairs, inclusive, hs = [], [], []
+    for k, t0 in enumerate(starts):
+        ak, bk = a[:, t0:t0 + chunk], b[:, t0:t0 + chunk]
+        prod, loc = torch.ones(B, W), torch.zeros(B, W)
+        for u in range(ak.shape[1]):
+            loc = ak[:, u] * loc + bk[:, u]
+            prod = prod * ak[:, u]
+        pairs.append((prod, loc))
+        if k == 0:
+            carry = h0 if h0 is not None else torch.zeros(B, W)
+        else:
+            pa, pb = torch.ones(B, W), torch.zeros(B, W)
+            j = k - 1
+            while lookback == "deepest" and j > 0:
+                pb = pa * pairs[j][1] + pb
+                pa = pa * pairs[j][0]
+                j -= 1
+            carry = pa * inclusive[j] + pb
+        inclusive.append(prod * carry + loc)
+        for u in range(ak.shape[1]):
+            carry = ak[:, u] * carry + bk[:, u]
+            hs.append(carry)
+    return torch.stack(hs, 1), hs[-1]
+
+
+@pytest.mark.parametrize("lookback", ["nearest", "deepest"])
+@pytest.mark.parametrize("S,with_h0", [(1000, False), (2049, True), (64, True)])
+def test_rglru_chunk_pairs_match_reference(S, with_h0, lookback):
+    """K5's chunk-pair composition at the kernel's chunking (CHUNK_STEPS),
+    S ragged or not, against `repro.kernels.ref.rglru_scan_ref`, float32,
+    at chip_smoke's SCAN_TOL of 1e-5 normwise."""
+    from repro_torch.kernels.rglru_scan import CHUNK_STEPS
+
+    B, W = 2, 48
+    a, b, h0 = _scan_inputs(B, S, W, S + W)
+    th0 = torch.from_numpy(h0) if with_h0 else None
+    h, h_last = _rglru_chained(torch.from_numpy(a), torch.from_numpy(b), th0, CHUNK_STEPS, lookback)
+    jh0 = jnp.asarray(h0) if with_h0 else None
+    wh, wlast = r_ref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b), jh0)
+    for got, want in ((h, wh), (h_last, wlast)):
+        gap = np.abs(_np(got) - _np(want)).max()
+        assert gap <= 1e-5 * max(np.abs(_np(want)).max(), 1.0), gap

@@ -166,7 +166,17 @@ def test_flash_attention_kernel_matches_plain_version(
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("B,S,W", [(2, 512, 4096), (1, 1000, 300)])
+@pytest.mark.parametrize(
+    "B,S,W",
+    [
+        (2, 512, 4096),
+        (1, 1000, 300),
+        (2, 2048, 4096),  # the recurrentgemma-9b prefill step
+        (1, 2049, 300),  # one step past a multiple of the chunk
+        (2, 33, 129),  # two chunks, the second one step; a ragged channel tile
+        (1, 5, 1),  # one chunk shorter than the chunk length, one channel
+    ],
+)
 def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, W, with_h0):
     from repro_torch.kernels.rglru_scan import LAUNCHES as RG
 
@@ -225,6 +235,55 @@ def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N, chunk
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert _normwise(y, want_y) <= SSD_TOL
+    assert _normwise(h, want_h) <= SSD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("S", [1024, 1000, 77])
+def test_ssd_scan_tensor_core_body_matches_exact_answer(cuda, S, chunk):
+    """The bf16 tensor-core body (P 64, N 128) at each of its chunks, S a
+    multiple of every chunk, ragged, and shorter than one chunk, with head
+    0 at A = -16 (mamba2-1.3b's fastest decay): within SSD_TOL of the
+    exact f64 recurrence, that head alone too."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan_tc_kernel
+
+    x, dt, A, Bm, Cm = _ssd_inputs(2, S, 4, 64, 128, torch.bfloat16, cuda, seed=chunk)
+    A[0] = -16.0
+    before = dict(SSD)
+    y, h = ssd_scan_tc_kernel(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
+    want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert _normwise(y, want_y) <= SSD_TOL
+    assert _normwise(h, want_h) <= SSD_TOL
+    assert _normwise(y[:, :, 0], want_y[:, :, 0]) <= SSD_TOL
+    assert _normwise(h[:, 0], want_h[:, 0]) <= SSD_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["x", "Bm", "Cm"])
+def test_ssd_scan_tensor_core_body_refuses_a_misaligned_view(cuda, operand):
+    """A contiguous view one element past a 16-byte boundary raises
+    ValueError before the launch, and the context stays usable: the same
+    values at an aligned address then meet the exact answer."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan_tc_kernel
+
+    args = dict(zip(("x", "dt", "A", "Bm", "Cm"),
+                    _ssd_inputs(1, 300, 2, 64, 128, torch.bfloat16, cuda)))
+    view = _at_offset(args[operand], 1)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = dict(SSD)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ssd_scan_tc_kernel(**dict(args, **{operand: view}), chunk=128)
+    assert SSD == before
+    y, h = ssd_scan_tc_kernel(**dict(args, **{operand: view.clone()}), chunk=128)
+    torch.cuda.synchronize()
+    want_y, want_h = t_ref.ssd_scan_ref(*(args[k].double() for k in ("x", "dt", "A", "Bm", "Cm")))
     assert _normwise(y, want_y) <= SSD_TOL
     assert _normwise(h, want_h) <= SSD_TOL
 
