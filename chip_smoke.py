@@ -50,7 +50,26 @@ Phases (any failure raises, exits non-zero and prints no result):
               CPU, with the fused kernel's launch count checked.
 4. fig3_stragglers — one seed in f32 on the GPU (n = 640, the K=3 and K=4
               groups), held against the CPU in f64.
-5. serve-qwen3 — `repro_torch.launch.serve.serve` on qwen3-0.6b at full
+5. baselines — the paper's comparison at registry size, in f64 on the
+              card, each sweep held run by run against the same sweep on
+              the CPU (normwise 1e-9; host clocks and communication counts
+              bitwise): `fig3_baselines` (1500 iterations, the gossip
+              groups 150), `fig4_baselines` (1200) and `fig3e_runtime`
+              (1500, 2 seeds). K1 launches `iters` times in each group of
+              a K1 method (sI/csI/pI/cq-sI-ADMM) and never in a W-ADMM or
+              gossip group; each group's wall time on the card and the
+              CPU; per method the final accuracy and where it first
+              reaches accuracy 0.15 (iteration, communication, simulated
+              time); a profile of `fig3_baselines` at 100 iterations.
+6. variants — `privacy_grid` (pI-ADMM, 800 iterations x 8 cells x 3
+              seeds) and `compression_grid` (cq-sI-ADMM, 800 x 9 x 3) as
+              above; then on the card, bit for bit against sI-ADMM in a
+              batch of the same shape, pI-ADMM at sigma = 0 and top-k at
+              frac = 1.
+7. grids    — `topology_grid`, `hetero_grid`, `code_frontier` (800
+              iterations) and `mesh_scale` (600) as above, with a profile
+              of `mesh_scale` at 100 iterations.
+8. serve-qwen3 — `repro_torch.launch.serve.serve` on qwen3-0.6b at full
               width and depth in bf16: batch 4, prompt 2048, 32 new tokens.
               K3 launches exactly once per layer of the one prefill (28)
               and never in decode. Then, on the same weights: a warm
@@ -59,9 +78,9 @@ Phases (any failure raises, exits non-zero and prints no result):
               top kernels), and the prefill's logits and cache on the
               kernel path held against the plain path on the card, in
               bf16 and with the model widened to f32.
-6. serve-rg — the same for recurrentgemma-9b (batch 2, prompt 2048, 16
+9. serve-rg — the same for recurrentgemma-9b (batch 2, prompt 2048, 16
               new tokens): K5 launches once per recurrent layer (26).
-7. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
+10. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
               parameters), batch 2 x 4096 tokens, remat "full": the loss
               and every parameter's gradient on the kernel path (K4's
               CUDA-core body) held against the plain path
@@ -75,7 +94,7 @@ Phases (any failure raises, exits non-zero and prints no result):
               CUDA-core body runs 96 times (and the tensor-core body's
               never). Every profile names the port's kernels on its
               path.
-8. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
+11. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
               prompt 256) and the recurrentgemma smoke config: prefill
               and 3 decode steps on the card (kernels) held against the
               port on the CPU (plain versions), logits and caches; and
@@ -584,6 +603,204 @@ def phase_fig3_stragglers():
         f"[fig3_stragglers] GPU f32 vs CPU f64 worst normwise gap "
         f"{worst:.3e} (tolerance 1e-4)"
     )
+
+
+# The methods whose step runs K1 (the stochastic incremental-ADMM family);
+# W-ADMM and the gossip methods (D-ADMM, DGD, EXTRA) never do.
+K1_METHODS = ("sI-ADMM", "csI-ADMM", "pI-ADMM", "cq-sI-ADMM")
+# Card against CPU, both f64, normwise per run and field: fig5's bound.
+SWEEP_TOL = 1e-9
+
+
+def counted_sweep(spec, device):
+    """`run_sweep` of ``spec`` on ``device`` in f64. Returns the result and
+    one row per static group, in dispatch order: its method, runs,
+    iterations, wall seconds and K1 launches, read around the sweep
+    engine's per-group dispatch."""
+    from repro_torch.experiments import run_sweep
+    from repro_torch.experiments import sweep as engine
+    from repro_torch.kernels.coded_combine import LAUNCHES
+
+    rows = []
+    dispatch = engine._dispatch_group
+
+    def timed(method, cases, *args):
+        before = LAUNCHES["coded_admm_update"]
+        t0 = time.perf_counter()
+        out = dispatch(method, cases, *args)  # traces copied to the host
+        rows.append(dict(
+            method=method, runs=len(cases), iters=cases[0].iters,
+            wall_s=time.perf_counter() - t0,
+            k1=LAUNCHES["coded_admm_update"] - before,
+        ))
+        return out
+
+    engine._dispatch_group = timed
+    try:
+        result = run_sweep(spec, device=device, dtype=torch.float64)
+    finally:
+        engine._dispatch_group = dispatch
+    return result, rows
+
+
+def sweep_card_vs_cpu(label, name, **overrides):
+    """Sweep ``name`` at its registry defaults (``overrides`` aside) on the
+    card and on the CPU, both f64: the same grid and groups, the host
+    clocks and communication counts bitwise, every run's traces within
+    SWEEP_TOL; K1 launched ``iters`` times in each group of a K1 method
+    and never in another, and no other kernel launched. Returns the card's
+    result and its group rows."""
+    from repro_torch.experiments import get_sweep
+
+    spec = get_sweep(name, **overrides)
+    counters = reset_launches()
+    gpu, rows = counted_sweep(spec, "cuda")
+    launches = read_launches(counters)
+    for r in rows:
+        want = r["iters"] if r["method"] in K1_METHODS else 0
+        if r["k1"] != want:
+            raise AssertionError(
+                f"{name} group {r['method']} launched K1 {r['k1']} times, "
+                f"want {want}"
+            )
+    k1 = sum(r["k1"] for r in rows)
+    if launches != {**{k: 0 for k in launches}, "coded_admm_update": k1}:
+        raise AssertionError(f"{name} launches {launches}, want K1 {k1} only")
+    cpu, cpu_rows = counted_sweep(spec, "cpu")
+    if gpu.groups != cpu.groups or [c.label() for c in gpu.cases] != [
+        c.label() for c in cpu.cases
+    ]:
+        raise AssertionError(f"{name}: card and CPU grids differ")
+    for case, a, b in zip(gpu.cases, gpu.traces, cpu.traces):
+        for field in ("comm_cost", "sim_time"):
+            if not np.array_equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"{name} {case.label()} {field} differs")
+    worst = compare_traces(f"{label} {name}", gpu, cpu, rtol=SWEEP_TOL)
+    n_k1 = sum(r["method"] in K1_METHODS for r in rows)
+    log(
+        f"[{label}] {name}: {len(gpu.cases)} runs in {gpu.n_dispatches} "
+        f"group(s); card f64 wall {gpu.wall_s:.3f} s, CPU f64 wall "
+        f"{cpu.wall_s:.3f} s; K1 launches {k1} ({n_k1} K1 group(s) x iters), "
+        f"other kernels 0; card vs CPU worst normwise gap {worst:.3e} "
+        f"(tolerance {SWEEP_TOL:.0e})"
+    )
+    for r, c in zip(rows, cpu_rows):
+        log(
+            f"[{label}] {name} group {r['method']} x{r['runs']} runs x "
+            f"{r['iters']} iters: card {r['wall_s']:.3f} s "
+            f"({1e3 * r['wall_s'] / r['iters']:.3f} ms/step), CPU "
+            f"{c['wall_s']:.3f} s ({1e3 * c['wall_s'] / c['iters']:.3f} "
+            f"ms/step), K1 launches {r['k1']}"
+        )
+    return gpu, rows
+
+
+def profile_sweep(label, name, iters):
+    """Device busy share and top kernels of sweep ``name`` at ``iters``
+    iterations on the card (f64, registry runs), under torch.profiler."""
+    from repro_torch.experiments import get_sweep, run_sweep
+
+    spec = get_sweep(name, iters=iters)
+    prof = profile_share(
+        lambda: run_sweep(spec, device="cuda", dtype=torch.float64),
+        named=K12_KERNELS,
+    )
+    log(f"[{label}] {name} profile at {iters} iters: " + json.dumps(prof))
+
+
+def first_reach(trace, target):
+    """(iteration, comm_cost, sim_time) where ``trace`` first reaches
+    accuracy <= ``target`` (1-based), or None if it never does."""
+    hit = np.flatnonzero(trace.accuracy <= target)
+    if hit.size == 0:
+        return None
+    k = int(hit[0])
+    return [k + 1, float(trace.comm_cost[k]), float(trace.sim_time[k])]
+
+
+def phase_baselines():
+    """The paper's comparison (Fig. 3(c)(d)(e), Fig. 4): sI-ADMM against
+    W-ADMM, D-ADMM, DGD and EXTRA at registry size, card against CPU. The
+    paper's communication claim is logged as a fact of the run: where each
+    method first reaches accuracy 0.15, and its communication there."""
+    for name in ("fig3_baselines", "fig4_baselines", "fig3e_runtime"):
+        gpu, _ = sweep_card_vs_cpu("baselines", name)
+        summary = {}
+        for method in dict.fromkeys(c.method for c in gpu.cases):
+            traces = [t for _, t in gpu.select(method=method)]
+            summary[method] = dict(
+                final_accuracy=float(np.mean([t.accuracy[-1] for t in traces])),
+                first_at_0_15=[first_reach(t, 0.15) for t in traces],
+            )
+        log(
+            f"[baselines] {name} per method (final accuracy, mean of seeds; "
+            f"[iteration, comm_cost, sim_time] at first accuracy <= 0.15, "
+            f"per seed): {json.dumps(summary)}"
+        )
+    profile_sweep("baselines", "fig3_baselines", 100)
+
+
+def same_iterates(label, cases, got, want):
+    """Raise unless two lists of traces have equal iterates, bit for bit."""
+    for case, a, b in zip(cases, got, want, strict=True):
+        for field in TRACE_FIELDS:
+            if not np.array_equal(getattr(a, field), getattr(b, field)):
+                raise AssertionError(f"{label} {case.label()} {field} differs")
+
+
+def phase_variants():
+    """pI-ADMM's privacy grid and cq-sI-ADMM's compression grid at registry
+    size, card against CPU; then, on the card, each variant's control arm
+    against sI-ADMM bit for bit, in a batch of the same shape (pI-ADMM at
+    sigma = 0, cq-sI-ADMM top-k at frac = 1)."""
+    from repro_torch.experiments import run_sweep
+
+    priv, _ = sweep_card_vs_cpu("variants", "privacy_grid")
+    comp, _ = sweep_card_vs_cpu("variants", "compression_grid")
+    card = dict(device="cuda", dtype=torch.float64)
+    twins = run_sweep(
+        [dataclasses.replace(c, method="sI-ADMM") for c in priv.cases], **card
+    )
+    zero = [j for j, c in enumerate(priv.cases) if c.sigma == 0.0]
+    same_iterates(
+        "pI-ADMM sigma=0 vs sI-ADMM", [priv.cases[j] for j in zero],
+        [priv.traces[j] for j in zero], [twins.traces[j] for j in zero],
+    )
+    full = [
+        dataclasses.replace(c, frac=1.0) for c in comp.cases if c.compressor == "topk"
+    ]
+    cq = run_sweep(full, **card)
+    si = run_sweep([dataclasses.replace(c, method="sI-ADMM") for c in full], **card)
+    same_iterates("cq-sI-ADMM top-k frac=1 vs sI-ADMM", full, cq.traces, si.traces)
+    log(
+        f"[variants] control arms on the card, bit for bit: pI-ADMM at "
+        f"sigma = 0 equals sI-ADMM ({len(zero)} runs of a {len(priv.cases)}-run "
+        f"batch), cq-sI-ADMM top-k at frac = 1 equals sI-ADMM ({len(full)} runs)"
+    )
+    for name, res, by in (("privacy_grid", priv, ("sigma", "S")),
+                          ("compression_grid", comp, ("compressor", "bits", "frac", "connectivity"))):
+        cells = {}
+        for c, t in zip(res.cases, res.traces):
+            key = c.label(*by)
+            cells.setdefault(key, []).append((t.accuracy[-1], t.comm_cost[-1]))
+        log(
+            f"[variants] {name} final accuracy and comm_cost per cell (mean "
+            f"of seeds): " + json.dumps({
+                k: [float(np.mean([a for a, _ in v])), float(v[0][1])]
+                for k, v in cells.items()
+            })
+        )
+
+
+def phase_grids():
+    """The beyond-paper ADMM grids at registry size, card against CPU."""
+    for name in ("topology_grid", "hetero_grid", "code_frontier", "mesh_scale"):
+        gpu, _ = sweep_card_vs_cpu("grids", name)
+        log(
+            f"[grids] {name}: final accuracy mean {np.mean([t.accuracy[-1] for t in gpu.traces]):.6f}, "
+            f"final sim_time mean {np.mean([t.sim_time[-1] for t in gpu.traces]):.6f} s (simulated)"
+        )
+    profile_sweep("grids", "mesh_scale", 100)
 
 
 def normwise_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1204,6 +1421,9 @@ def main() -> int:
     rows += phase_ssd_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()
+    phase_baselines()
+    phase_variants()
+    phase_grids()
     qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28,
                        K3_KERNELS)
     rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26,

@@ -3,11 +3,12 @@ ADMM's host side.
 
 Pure-numpy copies of `repro.core`'s graph, problem, coding, timing and
 schedule modules, so every seed stream, code and schedule is bit-for-bit
-the reference's. The baselines (`repro.core.baselines`) are not ported yet
-(ROADMAP Queue 1, item 8).
+the reference's, and the serial entry points of the paper's method and
+of its §V-A baselines (`baselines.py`: W-ADMM, D-ADMM, DGD, EXTRA).
 """
 
 from .admm import ADMMConfig, Trace, make_schedule, run_incremental_admm
+from .baselines import run_dadmm, run_dgd, run_extra, run_wadmm
 from .coding import (
     CODE_FAMILIES,
     GradientCode,
@@ -33,6 +34,10 @@ __all__ = [
     "Trace",
     "make_schedule",
     "run_incremental_admm",
+    "run_wadmm",
+    "run_dadmm",
+    "run_dgd",
+    "run_extra",
     "CODE_FAMILIES",
     "GradientCode",
     "check_arm_set",

@@ -1,11 +1,16 @@
-"""Named sweeps: the paper figures on the main path.
+"""Named sweeps: the paper figures + beyond-paper grids.
 
-PyTorch port of `repro.experiments.registry`, limited to the sweeps of the
-ported slice: ``fig3_minibatch``, ``fig3_stragglers``, ``fig4_stragglers``
-and ``fig5`` (the reference's registry.py:26-135). The baseline and
-beyond-paper grids follow their methods in later slices (ROADMAP
-Queue 1). Each factory returns a `SweepSpec`; pass ``iters=``/``runs=``
-overrides for smoke runs.
+PyTorch port of `repro.experiments.registry`, limited to the sweeps whose
+methods are ported: the paper's figures (``fig3_minibatch``,
+``fig3_baselines``, ``fig3_stragglers``, ``fig3e_runtime``,
+``fig4_baselines``, ``fig4_stragglers``, ``fig5``) and the beyond-paper
+grids ``topology_grid``, ``privacy_grid``, ``code_frontier``,
+``compression_grid``, ``hetero_grid`` and ``mesh_scale`` (run batched; the
+sharded tier is ROADMAP Queue 1, item 13). ``fleet_frontier`` (streaming
+reductions, item 10), ``staleness_frontier`` and ``churn_grid`` (async
+mode, item 11) and ``adaptive_frontier`` (bandit control, item 12) follow
+their layers in later slices. Each factory returns a `SweepSpec`; pass
+``iters=``/``runs=`` overrides for smoke runs.
 """
 
 from __future__ import annotations
@@ -33,6 +38,29 @@ def fig3_minibatch(iters: int = 1500, runs: int = 1) -> SweepSpec:
     )
 
 
+def _gossip_iters(c: Case) -> Case:
+    """Gossip methods update every agent per iteration — the paper plots
+    them at 1/10 the incremental iteration count (equal-work comparison);
+    D-ADMM uses rho=0.1, DGD/EXTRA alpha=0.05."""
+    if c.method in ("D-ADMM", "DGD", "EXTRA"):
+        c = dataclasses.replace(c, iters=max(c.iters // 10, 1), rho=0.1)
+    return c
+
+
+def fig3_baselines(iters: int = 1500, runs: int = 1) -> SweepSpec:
+    """Fig. 3(c)+(d): sI-ADMM vs W-ADMM / D-ADMM / DGD / EXTRA on USPS."""
+    return SweepSpec(
+        "fig3_baselines",
+        Case(dataset="usps", iters=iters, alpha=0.05),
+        axes={
+            "method": ["sI-ADMM", "W-ADMM", "D-ADMM", "DGD", "EXTRA"],
+            "seed": list(range(runs)),
+        },
+        fixup=_gossip_iters,
+        description="accuracy vs communication cost, incremental vs gossip",
+    )
+
+
 def fig3_stragglers(iters: int = 1500, runs: int = 1) -> SweepSpec:
     """Fig. 3(e): running time under straggler delay, coded vs uncoded.
 
@@ -55,6 +83,20 @@ def fig3_stragglers(iters: int = 1500, runs: int = 1) -> SweepSpec:
             "seed": list(range(runs)),
         },
         description="sim running time vs max straggler delay epsilon",
+    )
+
+
+def fig4_baselines(iters: int = 1200, runs: int = 1) -> SweepSpec:
+    """Fig. 4: the Fig. 3(c)/(d) comparison on ijcnn1(-standin)."""
+    return SweepSpec(
+        "fig4_baselines",
+        Case(dataset="ijcnn1", iters=iters, alpha=0.05),
+        axes={
+            "method": ["sI-ADMM", "W-ADMM", "D-ADMM", "DGD", "EXTRA"],
+            "seed": list(range(runs)),
+        },
+        fixup=_gossip_iters,
+        description="fig3 baseline comparison at ijcnn1 scale",
     )
 
 
@@ -96,11 +138,230 @@ def fig5(iters: int = 1200, runs: int = 4) -> SweepSpec:
     )
 
 
+def topology_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper: topology connectivity x S x scheme grid (synthetic).
+
+    The paper fixes eta=0.5; this grid crosses sparse/medium/dense
+    topologies with straggler tolerance and both repetition schemes in
+    one engine call. Shortest-path-cycle traversal makes connectivity
+    bite (the Hamiltonian ring is planted identically at every eta; only
+    relay hops differ across topologies). Note the two coded schemes
+    produce IDENTICAL accuracy curves by construction — both decode the
+    exact gradient — and differ in simulated response time and storage
+    replication only.
+    """
+    return SweepSpec(
+        "topology_grid",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360,
+            c_tau=0.5, iters=iters, traversal="shortest_path",
+        ),
+        axes={
+            "connectivity": [0.3, 0.6, 0.9],
+            "S": [0, 1, 2],
+            "scheme": ["cyclic", "fractional"],
+            "seed": list(range(runs)),
+        },
+        fixup=_coded_scheme,
+        description="beyond-paper topology x straggler x scheme grid",
+    )
+
+
+def privacy_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper: pI-ADMM privacy noise x straggler tolerance grid.
+
+    Gaussian primal perturbation (arXiv 2003.10615) with std decaying as
+    sigma/sqrt(k), crossed with the coded straggler tolerance S — the
+    privacy mechanism and the coding layer compose because the kernel
+    inherits the full csI-ADMM data path (DESIGN.md §8). sigma=0 is the
+    exact sI-/csI-ADMM iterate path (the noise-free control arm).
+    """
+    return SweepSpec(
+        "privacy_grid",
+        Case(
+            method="pI-ADMM", dataset="usps", K=3, M=60, scheme="cyclic",
+            iters=iters,
+        ),
+        axes={
+            "sigma": [0.0, 0.01, 0.05, 0.2],
+            "S": [0, 1],
+            "seed": list(range(runs)),
+        },
+        fixup=_coded_scheme,
+        description="privacy noise sigma x straggler tolerance S for pI-ADMM",
+    )
+
+
+def compression_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper: cq-sI-ADMM token compression x topology grid.
+
+    Quantized (4/8-bit stochastic) and top-k sparsified token updates
+    (arXiv 2501.13516) with error feedback, across sparse/medium/dense
+    topologies (shortest-path-cycle traversal, so connectivity bites via
+    relay hops — same rationale as `topology_grid`). comm_cost rows
+    account compressed hops at their true bit cost including side
+    information (top-k indices, quantization sign + scale; see
+    `repro_torch.methods.compression`), so accuracy-vs-communication
+    comparisons against sI-ADMM are honest.
+    """
+    return SweepSpec(
+        "compression_grid",
+        Case(
+            method="cq-sI-ADMM", dataset="usps", K=3, M=60, iters=iters,
+            traversal="shortest_path",
+        ),
+        axes={
+            "compressor": [
+                {"compressor": "quant", "bits": 4},
+                {"compressor": "quant", "bits": 8},
+                {"compressor": "topk", "frac": 0.25},
+            ],
+            "connectivity": [0.3, 0.6, 0.9],
+            "seed": list(range(runs)),
+        },
+        description="token compression (bits / top-k) x topology grid",
+    )
+
+
+def _frontier_deadline(c: Case) -> Case:
+    """Exact-only families ignore the decode deadline (it is a no-op in
+    the schedule), so their deadline grid points merge into one case;
+    S=0 points run uncoded as everywhere else."""
+    c = _coded_scheme(c)
+    if c.scheme != "approx":
+        c = dataclasses.replace(c, deadline=None)
+    return c
+
+
+def code_frontier(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper headline: code family x S x decode deadline frontier.
+
+    Every registered exact family (cyclic S+1-replication, MDS full
+    replication) against the partial-recovery `approx` family with and
+    without a decode deadline (DESIGN.md §11): the deadline trades a
+    certified decode error for never waiting past `deadline` seconds on
+    a straggling R-th ECN, so the accuracy-vs-sim_time frontier shows
+    where bounded-error decoding beats waiting. All axes are host-side
+    (decode weights, masks, clocks), so the whole grid is ONE dispatch
+    — same static signature as the fig5 family.
+    """
+    return SweepSpec(
+        "code_frontier",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+            p_straggle=0.3, delay=5e-3,
+        ),
+        axes={
+            "scheme": ["cyclic", "mds", "approx"],
+            "S": [1, 2],
+            "deadline": [None, 3e-4, 1e-3],
+            "seed": list(range(runs)),
+        },
+        fixup=_frontier_deadline,
+        description="code family x straggler tolerance x decode deadline",
+        x_axis="sim_time",
+    )
+
+
+def mesh_scale(iters: int = 600, runs: int = 16) -> SweepSpec:
+    """Beyond-paper: the fig5 grid at mesh scale (48 runs default — the
+    2x2x16 axis product is 64 grid points, but the `_coded_scheme` fixup
+    merges the S=0 cyclic/fractional points into one uncoded case).
+
+    Built to saturate a multi-device mesh: S x scheme x 16 seeds is one
+    static group, so the whole grid is ONE batch on the runs axis. The
+    port runs it batched on one device; splitting the runs axis over
+    several is the sharded tier (ROADMAP Queue 1, item 13).
+    """
+    return SweepSpec(
+        "mesh_scale",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+        ),
+        axes={
+            "S": [0, 1],
+            "scheme": ["cyclic", "fractional"],
+            "seed": list(range(runs)),
+        },
+        fixup=_coded_scheme,
+        description="fig5-style grid sized for mesh-sharded execution",
+    )
+
+
+def fig3e_runtime(iters: int = 1500, runs: int = 2) -> SweepSpec:
+    """Fig. 3(e) completed: ALL five fig3 methods on the running-time axis.
+
+    The paper's headline running-time claim compares csI-/sI-ADMM against
+    the state-of-the-art baselines; this sweep puts every fig3 method on
+    the unified simulated clock (DESIGN.md §10) so
+    ``reduce_mean(..., x="sim_time")`` yields the seed-averaged
+    accuracy-vs-running-time curves and the accuracy-at-time-budget
+    readout (EXPERIMENTS.md 'Running time').
+    """
+    return SweepSpec(
+        "fig3e_runtime",
+        Case(
+            dataset="usps", iters=iters, alpha=0.05,
+            p_straggle=0.3, delay=5e-3,
+        ),
+        axes={
+            "method": ["sI-ADMM", "W-ADMM", "D-ADMM", "DGD", "EXTRA"],
+            "seed": list(range(runs)),
+        },
+        fixup=_gossip_iters,
+        description="accuracy vs simulated running time, all fig3 methods",
+        x_axis="sim_time",
+    )
+
+
+def hetero_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper: heterogeneous-fleet grid — speed-class mix x S x scheme.
+
+    Shifted-exponential ECN responses (the coded-computing response model,
+    arXiv 2107.00481) with per-ECN speed classes assigned round-robin:
+    (1.0,) is the paper's homogeneous fleet, (1.0, 2.0) alternates 2x
+    slower ECNs, (1.0, 1.0, 4.0) plants one 4x straggler class per
+    triple. Crossed with straggler tolerance S and both repetition
+    schemes — the regime where coding should pay off most, since slow
+    classes are *persistently* slow rather than transiently delayed.
+    Speed classes only touch the host-side clock, so the whole grid
+    still shares ONE static signature / dispatch.
+    """
+    return SweepSpec(
+        "hetero_grid",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+            p_straggle=0.3, delay=5e-3, response="shifted_exp",
+        ),
+        axes={
+            "speed_classes": [(1.0,), (1.0, 2.0), (1.0, 1.0, 4.0)],
+            "S": [0, 1, 2],
+            "scheme": ["cyclic", "fractional"],
+            "seed": list(range(runs)),
+        },
+        fixup=_coded_scheme,
+        description="ECN speed-class mix x straggler tolerance x scheme",
+        x_axis="sim_time",
+    )
+
+
 SWEEPS: Dict[str, Callable[..., SweepSpec]] = {
     "fig3_minibatch": fig3_minibatch,
+    "fig3_baselines": fig3_baselines,
     "fig3_stragglers": fig3_stragglers,
+    "fig3e_runtime": fig3e_runtime,
+    "fig4_baselines": fig4_baselines,
     "fig4_stragglers": fig4_stragglers,
     "fig5": fig5,
+    "topology_grid": topology_grid,
+    "privacy_grid": privacy_grid,
+    "code_frontier": code_frontier,
+    "compression_grid": compression_grid,
+    "hetero_grid": hetero_grid,
+    "mesh_scale": mesh_scale,
 }
 
 

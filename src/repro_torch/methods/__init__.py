@@ -7,10 +7,12 @@ host-side ``prepare`` plus device-side ``setup``/``init``/``step``/
 registry with what is ported:
 
   sI-ADMM / csI-ADMM / I-ADMM  (paper Algorithms 1 & 2, eq. 4)
+  W-ADMM, D-ADMM, DGD, EXTRA   (paper §V-A baselines)
+  pI-ADMM                      (privacy-perturbed, arXiv 2003.10615)
+  cq-sI-ADMM                   (compressed token, arXiv 2501.13516)
 
-The baselines, the privacy/compression variants, streaming reductions,
-the async mode, the bandit controller and the sharded tier come in later
-slices (ROADMAP Queue 1, items 8-13).
+Streaming reductions, the async mode, the bandit controller (a-csI-ADMM)
+and the sharded tier come in later slices (ROADMAP Queue 1, items 10-13).
 """
 
 from .admm import ADMMRun, IncrementalADMM
@@ -23,7 +25,11 @@ from .base import (
     register,
     resolve_device,
 )
+from .compression import CompressionRun
 from .driver import run_batch, run_serial, run_sharded, run_steps
+from .gossip import DADMM, DGD, EXTRA, GossipRun
+from .privacy import PrivacyRun
+from .walkman import WalkmanADMM
 
 __all__ = [
     "MethodKernel",
@@ -38,5 +44,12 @@ __all__ = [
     "run_sharded",
     "run_steps",
     "ADMMRun",
+    "GossipRun",
+    "PrivacyRun",
+    "CompressionRun",
     "IncrementalADMM",
+    "WalkmanADMM",
+    "DADMM",
+    "DGD",
+    "EXTRA",
 ]

@@ -152,7 +152,20 @@ class MethodKernel:
     def final(self, state, aux, statics):
         raise NotImplementedError
 
-    # -- shared state/metric plumbing --------------------------------------
+    # -- shared aux/state/metric plumbing ----------------------------------
+
+    @staticmethod
+    def lsq_aux(O, T, x_star, O_test, T_test):
+        """Aux base for kernels that keep the raw (R, N, b, ...) data views:
+        everything :meth:`metrics` consumes plus shape/dtype bookkeeping."""
+        R, N, b, p = O.shape
+        return dict(
+            O=O, T=T, b=b,
+            x_star=x_star,
+            xs_norm=torch.linalg.vector_norm(x_star.reshape(R, -1), dim=1),
+            O_test=O_test, T_test=T_test,
+            shape=(R, N, p, T.shape[3]), dtype=O.dtype,
+        )
 
     @staticmethod
     def xyz_state(aux):
@@ -168,7 +181,9 @@ class MethodKernel:
     @staticmethod
     def metrics(x, z, aux):
         """Per-step metrics of every run (eq. 23 accuracy, test MSE, z
-        error), each (R,), from aux's x_star and test-set Gram operands."""
+        error), each (R,), from aux's x_star and test-set operands: the
+        Gram form where `setup` precomputed it (the ADMM family), else the
+        direct residual of the raw test views (`lsq_aux`)."""
         x_star = aux["x_star"]
         R, N = x.shape[:2]
         den = aux["xs_norm"].clamp_min(1e-12)
@@ -178,13 +193,17 @@ class MethodKernel:
             )
             / den[:, None]
         ).mean(dim=1)
-        # ||O z - T||^2 / n = (z'Gz - 2<z,C> + ||T||^2) / n via the test
-        # set's precomputed Gram/cross matrices (p x p per step).
-        test_err = (
-            torch.einsum("rpd,rpq,rqd->r", z, aux["Gt"], z)
-            - 2.0 * (z * aux["Ct"]).sum(dim=(1, 2))
-            + aux["TTt"]
-        ) / aux["n_test"]
+        if "Gt" in aux:
+            # ||O z - T||^2 / n = (z'Gz - 2<z,C> + ||T||^2) / n via the test
+            # set's precomputed Gram/cross matrices (p x p per step).
+            test_err = (
+                torch.einsum("rpd,rpq,rqd->r", z, aux["Gt"], z)
+                - 2.0 * (z * aux["Ct"]).sum(dim=(1, 2))
+                + aux["TTt"]
+            ) / aux["n_test"]
+        else:
+            r = aux["O_test"] @ z - aux["T_test"]
+            test_err = (r * r).sum(dim=-1).mean(dim=-1)
         z_err = torch.linalg.vector_norm((z - x_star).reshape(R, -1), dim=1) / den
         return acc, test_err, z_err
 

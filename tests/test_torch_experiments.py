@@ -1,12 +1,15 @@
 """The port's sweep engine against `repro.experiments`, end to end.
 
-``fig5`` and ``fig3_stragglers`` at smoke scale (``iters=120, runs=2``)
-run through the port's `run_sweep` on the CPU in float64 and through the
-reference's batched `run_sweep`; every case's trace must agree within
-rtol 1e-9 / atol 1e-12 (summation order only: the worst gap measured was
-4.2e-13 relative on fig5's test error and 9.3e-12 relative on a near-zero
-fig3_stragglers final iterate), and the grid, its grouping and the host
-clocks must be identical.
+Every ported sweep at smoke scale (``iters=120, runs=2``; the gossip
+groups of the baseline sweeps run 12 iterations) runs through the port's
+`run_sweep` on the CPU in float64 and through the reference's batched
+`run_sweep`; every case's trace must agree within rtol 1e-9 / atol 1e-12
+(summation order only: the worst gap measured was 4.2e-13 relative on
+fig5's test error and 9.3e-12 relative on a near-zero fig3_stragglers
+final iterate; over the other eleven sweeps, at most 6e-4 of the
+tolerance), and the grid, its grouping and the host clocks must be
+identical — for the baselines' and variants' groups as for the ADMM
+family's.
 """
 
 import dataclasses
@@ -21,6 +24,22 @@ import repro_torch.experiments as tx
 TOL = dict(rtol=1e-9, atol=1e-12)
 CPU64 = dict(device="cpu", dtype=torch.float64)
 FIELDS = ("accuracy", "test_error", "z_err", "final_x", "final_z")
+# The fields each sweep's figure averages over (its axes, seeds apart).
+BY = {
+    "fig5": ["S"],
+    "fig3_stragglers": ["scheme", "epsilon"],
+    "fig3_baselines": ["method"],
+    "fig4_baselines": ["method"],
+    "fig3e_runtime": ["method"],
+    "privacy_grid": ["sigma", "S"],
+    "compression_grid": ["compressor", "bits", "frac", "connectivity"],
+    "topology_grid": ["connectivity", "S", "scheme"],
+    "hetero_grid": ["speed_classes", "S", "scheme"],
+    "code_frontier": ["scheme", "S", "deadline"],
+    "mesh_scale": ["S", "scheme"],
+}
+PORTED = sorted(BY) + ["fig3_minibatch", "fig4_stragglers"]
+UNPORTED = ["fleet_frontier", "adaptive_frontier", "staleness_frontier", "churn_grid"]
 
 
 def _same_grid(a, b):
@@ -29,7 +48,7 @@ def _same_grid(a, b):
     assert [c.label("S", "seed") for c in a] == [c.label("S", "seed") for c in b]
 
 
-@pytest.mark.parametrize("name", ["fig5", "fig3_stragglers"])
+@pytest.mark.parametrize("name", list(BY))
 def test_sweep_matches_reference_per_case(name):
     ref = rx.run_sweep(rx.get_sweep(name, iters=120, runs=2), mode="batched")
     got = tx.run_sweep(tx.get_sweep(name, iters=120, runs=2), **CPU64)
@@ -44,8 +63,8 @@ def test_sweep_matches_reference_per_case(name):
             )
         assert np.array_equal(g.comm_cost, r.comm_cost)
         assert np.array_equal(g.sim_time, r.sim_time)
-    # The per-S reduction the figures plot agrees too.
-    by = ["S"] if name == "fig5" else ["scheme", "epsilon"]
+    # The per-cell reduction the figures plot agrees too.
+    by = BY[name]
     rr, gr = rx.reduce_mean(ref, by), tx.reduce_mean(got, by)
     assert list(rr) == list(gr)
     for key in rr:
@@ -53,7 +72,7 @@ def test_sweep_matches_reference_per_case(name):
         np.testing.assert_allclose(gr[key]["ci"], rr[key]["ci"], rtol=1e-6, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["fig3_minibatch", "fig4_stragglers", "fig5"])
+@pytest.mark.parametrize("name", PORTED)
 def test_ported_registry_specs_expand_alike(name):
     for kw in (dict(), dict(iters=30, runs=3)):
         r, t = rx.get_sweep(name, **kw), tx.get_sweep(name, **kw)
@@ -104,8 +123,11 @@ def test_serial_mode_and_result_helpers():
 
 
 def test_unknown_and_unported_sweeps_and_modes():
-    with pytest.raises(KeyError, match="ported: .*fig3_minibatch.*fig5"):
-        tx.get_sweep("fleet_frontier")
+    assert sorted(tx.SWEEPS) == sorted(PORTED)
+    assert sorted(rx.SWEEPS) == sorted(PORTED + UNPORTED)
+    for name in UNPORTED:
+        with pytest.raises(KeyError, match="ported: .*fig3_minibatch.*fig5"):
+            tx.get_sweep(name)
     spec = tx.get_sweep("fig5", iters=10, runs=1)
     with pytest.raises(NotImplementedError, match="item 13"):
         tx.run_sweep(spec, mode="sharded", **CPU64)

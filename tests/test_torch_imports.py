@@ -35,7 +35,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                     "launch.serve", "models.mamba2", "models.losses",
                     "kernels.ssd_scan", "configs.mamba2_1_3b", "optim.sgd",
                     "optim.schedules", "data.lm", "checkpoint.npz",
-                    "distributed.plain", "launch.train"):
+                    "distributed.plain", "launch.train", "data.lsq",
+                    "methods.walkman", "methods.gossip", "methods.privacy",
+                    "methods.compression", "core.baselines"):
             assert "repro_torch." + mod in names, mod
         print(len(names))
         """

@@ -1,4 +1,4 @@
-"""The port's method kernel and drivers against `repro.methods`.
+"""The port's method kernels and drivers against `repro.methods`.
 
 Host side: the port's ``prepare`` must equal the reference's bitwise.
 Device side: the reference's own ``prepare`` output, converted by
@@ -34,11 +34,26 @@ ITERS = 40
 TOL = dict(rtol=1e-9, atol=1e-12)
 CPU64 = dict(device="cpu", dtype=torch.float64)
 FIELDS = ("accuracy", "test_error", "z_err", "final_x", "final_z")
+# Every ported method, one case each; a key that is not a method name
+# names the method in its kwargs (a second case of the same kernel).
 METHOD_KW = {
     "sI-ADMM": dict(),
     "csI-ADMM": dict(S=1, scheme="cyclic"),
     "I-ADMM": dict(),
+    "W-ADMM": dict(),
+    "D-ADMM": dict(rho=0.1),
+    "DGD": dict(),
+    "EXTRA": dict(),
+    "pI-ADMM": dict(sigma=0.05, S=1, scheme="cyclic"),
+    "cq-sI-ADMM": dict(compressor="topk", frac=0.25),
+    "cq-sI-ADMM-quant": dict(method="cq-sI-ADMM", compressor="quant", bits=4),
 }
+# Families the batch tests stack: each tuple batches into one group.
+BATCH_FAMILIES = (
+    ("sI-ADMM", "csI-ADMM"),
+    ("W-ADMM",), ("D-ADMM",), ("DGD",), ("EXTRA",),
+    ("pI-ADMM",), ("cq-sI-ADMM",), ("cq-sI-ADMM-quant",),
+)
 
 
 def _cases(method, seed=0, **kw):
@@ -73,10 +88,17 @@ def _assert_traces_close(got, want, **tol):
 
 
 def test_registry_holds_the_ported_family():
-    assert sorted(tm.KERNELS) == ["I-ADMM", "csI-ADMM", "sI-ADMM"]
-    assert len({id(k) for k in tm.KERNELS.values()}) == 1
+    assert sorted(tm.KERNELS) == sorted(
+        ["sI-ADMM", "csI-ADMM", "I-ADMM", "W-ADMM", "D-ADMM", "DGD",
+         "EXTRA", "pI-ADMM", "cq-sI-ADMM"]
+    )
+    # sI/csI/I-ADMM are one instance; every other name is its own kernel.
+    admm = {tm.get_kernel(m) for m in ("sI-ADMM", "csI-ADMM", "I-ADMM")}
+    assert len(admm) == 1
+    assert len({id(k) for k in tm.KERNELS.values()}) == 7
+    assert set(tm.KERNELS) == set(rm.KERNELS) - {"a-csI-ADMM"}
     with pytest.raises(KeyError, match="unknown method"):
-        tm.get_kernel("W-ADMM")
+        tm.get_kernel("a-csI-ADMM")
 
 
 @pytest.mark.parametrize("method", sorted(METHOD_KW))
@@ -109,11 +131,14 @@ def test_reference_prepare_through_port_step_serial(method):
     consts, steps = tm.prepared_to_device(
         *t_driver._stack([prep]), **CPU64
     )
-    assert consts[-1].dtype == torch.int64 and steps[0].dtype == torch.int64
+    for host, dev in zip(prep.consts + prep.steps, consts + steps, strict=True):
+        want = (torch.int64 if np.issubdtype(np.asarray(host).dtype, np.integer)
+                else torch.float64)
+        assert dev.dtype == want
     assert consts[0].dtype == torch.float64
     statics = {**prep.statics, **prep.max_statics}
     x, z, (acc, te, ze) = tm.run_steps(
-        tm.get_kernel(method), statics, consts, steps
+        tm.get_kernel(rc.method), statics, consts, steps
     )
     want = rm.run_serial(rk, rp, rn, rcfg, ITERS)
     for got, ref in ((acc[0], want.accuracy), (te[0], want.test_error),
@@ -123,24 +148,26 @@ def test_reference_prepare_through_port_step_serial(method):
 
 
 def test_reference_batch_through_port_step():
-    """repro's stacked batch (sI + csI mixed, 2 seeds each) through the
-    port's step == repro's run_batch, run by run."""
-    pairs = [_cases(m, s) for m in ("sI-ADMM", "csI-ADMM") for s in (0, 1)]
-    mats = [_materialize(rc, "repro") for rc, _ in pairs]
-    rk = mats[0][0]
-    args = ([m[1] for m in mats], [m[2] for m in mats], [m[3] for m in mats])
-    preps, statics, consts, steps = r_driver._stack_batch(rk, *args, ITERS)
-    consts, steps = tm.prepared_to_device(consts, steps, **CPU64)
-    x, z, (acc, te, ze) = tm.run_steps(
-        tm.get_kernel("csI-ADMM"), statics, consts, steps
-    )
-    want = rm.run_batch(rk, *args, ITERS)
-    for r, tr in enumerate(want):
-        np.testing.assert_allclose(acc[r].numpy(), tr.accuracy, **TOL)
-        np.testing.assert_allclose(te[r].numpy(), tr.test_error, **TOL)
-        np.testing.assert_allclose(ze[r].numpy(), tr.z_err, **TOL)
-        np.testing.assert_allclose(x[r].numpy(), tr.final_x, **TOL)
-        np.testing.assert_allclose(z[r].numpy(), tr.final_z, **TOL)
+    """repro's stacked batch of each family (sI + csI mixed; every other
+    method alone), 2 seeds each, through the port's step == repro's
+    run_batch, run by run."""
+    for family in BATCH_FAMILIES:
+        pairs = [_cases(m, s) for m in family for s in (0, 1)]
+        mats = [_materialize(rc, "repro") for rc, _ in pairs]
+        rk = mats[0][0]
+        args = ([m[1] for m in mats], [m[2] for m in mats], [m[3] for m in mats])
+        preps, statics, consts, steps = r_driver._stack_batch(rk, *args, ITERS)
+        consts, steps = tm.prepared_to_device(consts, steps, **CPU64)
+        x, z, (acc, te, ze) = tm.run_steps(
+            tm.get_kernel(pairs[0][0].method), statics, consts, steps
+        )
+        want = rm.run_batch(rk, *args, ITERS)
+        for r, tr in enumerate(want):
+            np.testing.assert_allclose(acc[r].numpy(), tr.accuracy, **TOL)
+            np.testing.assert_allclose(te[r].numpy(), tr.test_error, **TOL)
+            np.testing.assert_allclose(ze[r].numpy(), tr.z_err, **TOL)
+            np.testing.assert_allclose(x[r].numpy(), tr.final_x, **TOL)
+            np.testing.assert_allclose(z[r].numpy(), tr.final_z, **TOL)
 
 
 @pytest.mark.parametrize("method", sorted(METHOD_KW))
@@ -156,17 +183,19 @@ def test_port_run_serial_matches_reference(method):
 
 def test_port_serial_equals_port_batch():
     """The serial driver is the R = 1 case of the batched one: row by row
-    the same traces (the batch's MU is the max over its runs, so rows past
-    a run's own mu add exact zeros in another summation length)."""
-    pairs = [_cases(m, s) for m in ("sI-ADMM", "csI-ADMM") for s in (0, 1)]
-    mats = [_materialize(tc, "repro_torch") for _, tc in pairs]
-    tk = mats[0][0]
-    batch = tm.run_batch(
-        tk, [m[1] for m in mats], [m[2] for m in mats], [m[3] for m in mats],
-        ITERS, **CPU64,
-    )
-    for (k, p, n, c), tb in zip(mats, batch):
-        _assert_traces_close(tm.run_serial(k, p, n, c, ITERS, **CPU64), tb)
+    the same traces, for every family (the batch's MU is the max over its
+    runs, so rows past a run's own mu add exact zeros in another summation
+    length)."""
+    for family in BATCH_FAMILIES:
+        pairs = [_cases(m, s) for m in family for s in (0, 1)]
+        mats = [_materialize(tc, "repro_torch") for _, tc in pairs]
+        tk = mats[0][0]
+        batch = tm.run_batch(
+            tk, [m[1] for m in mats], [m[2] for m in mats],
+            [m[3] for m in mats], ITERS, **CPU64,
+        )
+        for (k, p, n, c), tb in zip(mats, batch):
+            _assert_traces_close(tm.run_serial(k, p, n, c, ITERS, **CPU64), tb)
 
 
 def test_mixed_S_batch_gathers_out_of_bounds_and_matches():
@@ -230,15 +259,37 @@ def test_float32_run_tracks_float64():
         assert np.abs(x - y).max() <= 1e-4 * np.abs(y).max(), f
 
 
-@pytest.mark.parametrize(
-    "timing", [dict(tau_max=2e-3), dict(churn_rate=20.0, mttr=0.05)]
-)
-def test_async_timing_raises(timing):
-    _, tc = _cases("csI-ADMM")
+ASYNC_TIMINGS = (dict(tau_max=2e-3), dict(churn_rate=20.0, mttr=0.05))
+
+
+@pytest.mark.parametrize("method,timing", [
+    pytest.param(m, t, id=f"timing{j}" if m == "csI-ADMM" else f"{m}-timing{j}")
+    for m in ("csI-ADMM", "D-ADMM", "DGD", "EXTRA", "pI-ADMM", "cq-sI-ADMM")
+    for j, t in enumerate(ASYNC_TIMINGS)
+])
+def test_async_timing_raises(method, timing):
+    """Async mode (the ADMM pend ring, the gossip history rings) is
+    ROADMAP item 11: every ported method but W-ADMM raises naming it."""
+    _, tc = _cases(method)
     tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
     run = dataclasses.replace(tcfg, timing=TimingModel(**timing))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
         tm.run_serial(tk, tp, tn, run, ITERS, **CPU64)
+
+
+@pytest.mark.parametrize("timing", ASYNC_TIMINGS)
+def test_walkman_async_raises_the_reference_error(timing):
+    """W-ADMM has no event-driven mode at all: the port raises the
+    reference's own error, message included."""
+    msgs = []
+    for pkg, case in zip(("repro", "repro_torch"), _cases("W-ADMM")):
+        k, p, n, cfg = _materialize(case, pkg)
+        timing_cls = type(cfg.timing)
+        run = dataclasses.replace(cfg, timing=timing_cls(**timing))
+        with pytest.raises(NotImplementedError) as err:
+            k.prepare(p, n, run, ITERS)
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1] and "no event-driven mode" in msgs[1]
 
 
 def test_unported_paths_raise():
