@@ -22,8 +22,9 @@ Phases (any failure raises, exits non-zero and prints no result):
               computes the same function, that call's time:
               K1/K2 (coded combine) in f32, f64 and bf16, with NaN planted
               in dead message rows, at the fig5 step (R=16, J=6, n=3), the
-              USPS step (R=9, J=3, n=640) and a fleet-scale step at the
-              paper's USPS width (R=4096, J=16, n=2560), against
+              USPS step (R=9, J=3, n=640), a fleet-scale step at the
+              paper's USPS width (R=4096, J=16, n=2560) and the step of
+              `fleet_frontier`'s one group (R=12000, J=6, n=3), against
               `torch.bmm`; K3 (flash attention) at the qwen3-0.6b prefill
               step (B 4, S 2048, H 16, KV 8, hd 128) in bf16 and f32, with
               a 512 window, at a ragged S = 1000, and at the MQA hd 256 and
@@ -69,6 +70,32 @@ Phases (any failure raises, exits non-zero and prints no result):
 7. grids    — `topology_grid`, `hetero_grid`, `code_frontier` (800
               iterations) and `mesh_scale` (600) as above, with a profile
               of `mesh_scale` at 100 iterations.
+7a. fleet   — `fleet_frontier` at registry size (2 responses x 3 code
+              families x 2 S x 1,000 seeds = 12,000 runs x 1,000
+              iterations, one group) through `run_sweep` with its
+              streaming Reduction on the card in f64 (runs are cut, and
+              the cut logged, only if the host cannot hold the stacked
+              arrays): host prepare, stacking, host-to-device copy and step
+              loop timed apart, run-iterations per second, a profiled
+              50-step copy of the loop (busy share), peak device memory and
+              host RSS; K1 launched `iters` times. Its first 2 seeds (24
+              runs) are held against the same sweep on the CPU: continuous
+              summaries normwise 1e-9, discrete ones (time-to-target,
+              quantiles) equal unless the metric lies within 1e-9 of a
+              target or bin edge (counted and printed).
+7b. sharded — `run_sharded` with the card listed twice, under a
+              REPRO_SHARD_MEM_MB that forces at least three chunks, on a
+              60-run slice of `fleet_frontier`: the lazy reduced path
+              (summaries at 1e-12) and the Trace path (bit for bit), each
+              against `run_batch` on the card.
+7c. async   — `staleness_frontier` (8 groups) and `churn_grid` (2) at
+              registry size, card against CPU; the tau_max = 0 and
+              churn_rate = 0 arms bit for bit against a sync-only sweep of
+              the same cases (a batch of the same shape).
+7d. adaptive — `adaptive_frontier` at registry size, card against CPU;
+              `device_pulls` on the card equal to the host `replay` for
+              UCB1 and EXP3; single-arm controllers equal to the static
+              csI-ADMM run bit for bit.
 8. serve-qwen3 — `repro_torch.launch.serve.serve` on qwen3-0.6b at full
               width and depth in bf16: batch 4, prompt 2048, 32 new tokens.
               K3 launches exactly once per layer of the one prefill (28)
@@ -101,6 +128,9 @@ Phases (any failure raises, exits non-zero and prints no result):
               3 training steps of the mamba2 smoke config in f32, losses
               and final parameters.
 
+Not in the default run (it needs several cards): ``phase_multi_card()``,
+the sharded tier over every card of the host against one card.
+
 Before the last line it prints a ``{"kernels": [...]}`` JSON line and the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. With no GPU, or without the rest of the
@@ -116,6 +146,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -144,6 +175,9 @@ KERNEL_SHAPES = {
     "fig5_step": (16, 6, 3),
     "usps_step": (9, 3, 640),
     "fleet_step": (4096, 16, 2560),
+    # fleet_frontier's one group at registry size: 12,000 runs, J = K = 6
+    # partitions, n = p d = 3 (the synthetic set).
+    "fleet_frontier_step": (12000, 6, 3),
 }
 # The kernels' names as the profiler sees them (K3: the bf16 tensor-core
 # body and the f32 CUDA-core body).
@@ -607,7 +641,7 @@ def phase_fig3_stragglers():
 
 # The methods whose step runs K1 (the stochastic incremental-ADMM family);
 # W-ADMM and the gossip methods (D-ADMM, DGD, EXTRA) never do.
-K1_METHODS = ("sI-ADMM", "csI-ADMM", "pI-ADMM", "cq-sI-ADMM")
+K1_METHODS = ("sI-ADMM", "csI-ADMM", "pI-ADMM", "cq-sI-ADMM", "a-csI-ADMM")
 # Card against CPU, both f64, normwise per run and field: fig5's bound.
 SWEEP_TOL = 1e-9
 
@@ -801,6 +835,447 @@ def phase_grids():
             f"final sim_time mean {np.mean([t.sim_time[-1] for t in gpu.traces]):.6f} s (simulated)"
         )
     profile_sweep("grids", "mesh_scale", 100)
+
+
+# Summary-by-summary comparison of streamed sweeps: the keys whose value
+# is a clock reading chosen by a metric crossing a target (time_to) or a
+# histogram bin (quantiles) are discrete; every other summary is
+# continuous, held normwise per key.
+DISCRETE_SUMMARIES = ("/time_to", "/quantiles")
+# A discrete summary may differ where the metric lies this close (relative)
+# to a target or a bin edge.
+EDGE_TOL = 1e-9
+
+
+def meminfo_gb() -> dict:
+    """MemTotal and MemAvailable of the host, GB (/proc/meminfo)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":")
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024 / 1e9
+    return out
+
+
+def current_rss_gb():
+    """This process's resident set now, GB, from /proc/self/statm (None
+    where the system does not give it)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+class PeakRss:
+    """The peak resident set of this process over a block, GB: sampled
+    every 20 ms from /proc/self/statm by a thread, or, where that is not
+    readable, the process's lifetime peak (``getrusage``). ``source``
+    says which."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = current_rss_gb(), threading.Event()
+        self.source = "sampled" if self.peak is not None else "process lifetime peak"
+        if self.peak is not None:
+            self._thread = threading.Thread(target=self._sample, daemon=True)
+            self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, current_rss_gb() or 0.0)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self.source == "sampled":
+            self._thread.join()
+        else:
+            import resource
+
+            self.peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+        return False
+
+
+def near_edge(values: np.ndarray, edges: np.ndarray) -> bool:
+    """True if any of ``values`` lies within EDGE_TOL (relative) of any of
+    ``edges``."""
+    gap = np.abs(values[:, None] - edges[None, :])
+    return bool((gap <= EDGE_TOL * np.maximum(np.abs(edges[None, :]), 1e-300)).any())
+
+
+def compare_summaries(label, got, want, spec, traces=None, tol=SWEEP_TOL):
+    """Hold a streamed sweep's summaries (dicts of (runs, ...) arrays)
+    against a reference: continuous keys normwise within ``tol`` per key;
+    discrete keys (time_to, quantiles) equal, except where the reference
+    run's metric (from ``traces``, its materialized twin) lies within
+    EDGE_TOL of a target or a histogram bin edge. Returns (worst gap,
+    explained discrete differences); raises on any other difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(got)} vs {sorted(want)}")
+    worst, explained = 0.0, 0
+    bin_edges = spec.lo + np.arange(1, spec.bins) * (spec.hi - spec.lo) / spec.bins
+    for key, b in want.items():
+        a = got[key]
+        if a.shape != b.shape:
+            raise AssertionError(f"{label} {key}: shape {a.shape} vs {b.shape}")
+        if key.endswith(DISCRETE_SUMMARIES):
+            field = key.split("/")[0]
+            edges = np.asarray(spec.targets if key.endswith("/time_to") else bin_edges)
+            for r in np.flatnonzero((a != b).reshape(len(a), -1).any(axis=1)):
+                metric = None if traces is None else getattr(traces[r], field)
+                if metric is None or not near_edge(np.asarray(metric), edges):
+                    raise AssertionError(
+                        f"{label} {key} run {r}: {a[r]} vs {b[r]}, metric not "
+                        f"within {EDGE_TOL:.0e} of a target or bin edge")
+                explained += 1
+            continue
+        fin = np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), fin):
+            raise AssertionError(f"{label} {key}: finite entries differ")
+        if fin.any():
+            scale = float(np.abs(b[fin]).max())
+            gap = float(np.abs(a[fin] - b[fin]).max())
+            worst = max(worst, gap / max(scale, 1e-300))
+            if gap > tol * max(scale, 1e-300):
+                raise AssertionError(
+                    f"{label} {key}: gap {gap:.3e} beyond {tol:.0e} x {scale:.3e}")
+    return worst, explained
+
+
+def phase_fleet(runs=1000, cpu_runs=2):
+    """`fleet_frontier` at registry size through `run_sweep` with its
+    Reduction on the card (one static group); its first ``cpu_runs`` seeds
+    (12 runs each) held against the same sweep on the CPU. Host prepare,
+    the host-to-device copy and the step loop are timed apart, a 50-step
+    copy of the loop is profiled for the device busy share, and the peak
+    device memory and host RSS are read. Returns the card's K1 launches."""
+    from repro_torch.experiments import get_sweep, run_sweep
+    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.methods import driver
+
+    mem = meminfo_gb()
+    need = 12 * runs * 1.89e6 * 1.4 / 1e9  # stacked f64 arrays + slack
+    if need > 0.8 * mem["MemAvailable"]:
+        fit = int(0.8 * mem["MemAvailable"] * 1e9 / (12 * 1.89e6 * 1.4))
+        log(f"[fleet] CUT: runs {runs} -> {fit}: the host holds "
+            f"{mem['MemAvailable']:.1f} GB free, {need:.1f} GB needed")
+        runs = fit
+    spec = get_sweep("fleet_frontier", runs=runs)
+    times = dict(prepare_s=0.0, stack_s=0.0, to_device_s=0.0, loop_s=0.0)
+    prof = {}
+    wrapped = {n: getattr(driver, n)
+               for n in ("_stack_batch", "_stack", "prepared_to_device", "run_steps")}
+
+    def timed(name, key):
+        def fn(*a, **k):
+            t0 = time.perf_counter()
+            out = wrapped[name](*a, **k)
+            if key == "to_device_s":
+                torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t0
+            return out
+        return fn
+
+    def loop_with_profile(kernel, statics, consts, steps, reductions=None):
+        # A 50-step copy of the loop on the same device tensors, profiled
+        # (its K1 launches are taken back out of the count).
+        before = LAUNCHES["coded_admm_update"]
+        prof.update(profile_share(lambda: wrapped["run_steps"](
+            kernel, dict(statics, iters=50), consts,
+            tuple(s[:, :50] for s in steps), reductions), named=K12_KERNELS))
+        LAUNCHES["coded_admm_update"] = before
+        t0 = time.perf_counter()
+        out = wrapped["run_steps"](kernel, statics, consts, steps, reductions)
+        torch.cuda.synchronize()
+        times["loop_s"] += time.perf_counter() - t0
+        return out
+
+    driver._stack_batch = timed("_stack_batch", "prepare_s")
+    driver._stack = timed("_stack", "stack_s")
+    driver.prepared_to_device = timed("prepared_to_device", "to_device_s")
+    driver.run_steps = loop_with_profile
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with PeakRss() as rss:
+            counters = reset_launches()
+            t0 = time.perf_counter()
+            gpu = run_sweep(spec, device="cuda", dtype=torch.float64)
+            wall = time.perf_counter() - t0
+            launches = read_launches(counters)
+    finally:
+        for n, fn in wrapped.items():
+            setattr(driver, n, fn)
+    peak_dev = torch.cuda.max_memory_allocated() / 2**30
+    R, iters = len(gpu.cases), gpu.cases[0].iters
+    if gpu.n_dispatches != 1 or gpu.traces:
+        raise AssertionError(f"fleet: {gpu.n_dispatches} groups, traces {len(gpu.traces)}")
+    if launches != {**{k: 0 for k in launches}, "coded_admm_update": iters}:
+        raise AssertionError(f"fleet launches {launches}, want K1 {iters} only")
+    for key, v in gpu.reduced.items():
+        if v.shape[0] != R or np.isnan(v).any():
+            raise AssertionError(f"fleet {key}: shape {v.shape}, NaN {np.isnan(v).any()}")
+    log(
+        f"[fleet] cuda f64: {R} runs x {iters} iters in 1 group, wall {wall:.3f} s "
+        f"(host prepare {times['prepare_s']:.3f} s, stacking {times['stack_s']:.3f} s, "
+        f"host-to-device {times['to_device_s']:.3f} s, step loop {times['loop_s']:.3f} s, "
+        f"the rest (problems, grouping, summaries to the host) "
+        f"{wall - sum(times.values()):.3f} s; "
+        f"{R * iters / wall:.4g} run-iterations/s end to end, "
+        f"{R * iters / times['loop_s']:.4g} in the loop); K1 launches "
+        f"{launches['coded_admm_update']}, other kernels 0; peak device memory "
+        f"{peak_dev:.2f} GiB; host peak RSS {rss.peak:.2f} GB ({rss.source}); "
+        f"host memory {mem['MemTotal']:.1f} GB, "
+        f"{mem['MemAvailable']:.1f} GB available")
+    busy = prof["device_busy_ms"] / 50 / (1e3 * times["loop_s"] / iters)
+    log(f"[fleet] profile of a 50-step copy of the loop: device busy "
+        f"{prof['device_busy_ms'] / 50:.4f} ms a step against {1e3 * times['loop_s'] / iters:.4f} "
+        f"ms a step of the unprofiled loop: busy share {busy:.3f} of the loop "
+        f"(under the profiler {prof['busy_share']:.3f}); " + json.dumps(prof))
+    # The CPU reference: the first cpu_runs seeds, streamed, and their
+    # materialized twins (to tell a flipped bin or target from a fault).
+    cpu_spec = get_sweep("fleet_frontier", runs=cpu_runs)
+    t0 = time.perf_counter()
+    cpu = run_sweep(cpu_spec, device="cpu", dtype=torch.float64)
+    cpu_wall = time.perf_counter() - t0
+    twins = run_sweep(dataclasses.replace(cpu_spec, reductions=None), device="cpu",
+                      dtype=torch.float64)
+    index = {c: i for i, c in enumerate(gpu.cases)}
+    rows = np.array([index[c] for c in cpu.cases])
+    worst, explained = compare_summaries(
+        "fleet", {k: v[rows] for k, v in gpu.reduced.items()}, cpu.reduced,
+        spec.reductions, twins.traces)
+    log(f"[fleet] card vs CPU on {len(rows)} runs ({cpu_runs} seeds; CPU wall "
+        f"{cpu_wall:.3f} s): continuous summaries worst normwise gap {worst:.3e} "
+        f"(tolerance {SWEEP_TOL:.0e}); discrete summaries off by a metric within "
+        f"{EDGE_TOL:.0e} of a target or bin edge: {explained}")
+    acc = gpu.reduced["accuracy/at_budget"]
+    log("[fleet] accuracy at sim-time budgets (mean over runs) per response/scheme/S: "
+        + json.dumps({
+            f"{r}/{sc}/S={S}": [float(x) for x in acc[[
+                i for i, c in enumerate(gpu.cases)
+                if (c.response, c.scheme, c.S) == (r, sc, S)]].mean(axis=0)]
+            for r in ("lognormal", "pareto") for sc in ("cyclic", "mds", "approx")
+            for S in (1, 2)
+        }))
+    del gpu
+    torch.cuda.empty_cache()
+    return dict(launches=launches["coded_admm_update"], runs=R, iters=iters, wall_s=wall,
+                loop_s=times["loop_s"], prepare_s=times["prepare_s"])
+
+
+def shard_twins(kernel, args, chunks, D, device):
+    """`run_batch`'s path run shard by shard: the runs of each of
+    `run_sharded`'s shards (chunks of ``chunks`` runs over D devices, the
+    last run repeated as padding) in a batch of that shard's shape, under
+    the whole group's statics, on ``device``. cuBLAS may take another
+    algorithm for another batch size, so this, not one batch of all the
+    runs, is what the tier must equal bit for bit. Returns the traces."""
+    from repro_torch.methods import driver
+
+    preps, statics = driver._stack_batch(kernel, *args)
+    twins, lo = [], 0
+    for n in chunks:
+        per = -(-n // D)
+        for j in range(lo, lo + n, per):
+            idx = list(range(j, min(j + per, lo + n)))
+            idx += [idx[-1]] * (per - len(idx))  # the padding repeats the last run
+            twins += driver._run_prepared(kernel, [preps[i] for i in idx], statics, device,
+                                          torch.float64)[:min(per, lo + n - j)]
+        lo += n
+    return twins
+
+
+def phase_sharded(runs=5, iters=300, budget_mb="40"):
+    """The chunked sharded tier on the card, listed twice as two devices,
+    under a budget that forces at least three chunks: a 60-run slice of
+    `fleet_frontier` with its Reduction (the lazy per-chunk path) and
+    without it (the Trace path), held against `run_batch` on the card —
+    the Trace path bit for bit, the summaries at 1e-12."""
+    from repro_torch.experiments import get_sweep
+    from repro_torch.experiments import sweep as engine
+    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.methods import driver, get_kernel, run_batch, run_sharded
+
+    spec = get_sweep("fleet_frontier", iters=iters, runs=runs)
+    cases = spec.cases()
+    kernel = get_kernel("csI-ADMM")
+    nc, pc = {}, {}
+    mats = [engine._materialize(c, nc, pc) for c in cases]
+    args = ([m[1] for m in mats], [m[0] for m in mats],
+            [kernel.config(c) for c in cases], iters)
+    devs = ["cuda:0", "cuda:0"]
+    chunks = []
+    run_chunk = driver._run_chunk
+    driver._run_chunk = lambda *a: chunks.append(a[2][0].shape[0]) or run_chunk(*a)
+    old = os.environ.get("REPRO_SHARD_MEM_MB")
+    os.environ["REPRO_SHARD_MEM_MB"] = budget_mb
+    try:
+        out = {}
+        for label, red in (("reduced", spec.reductions), ("trace", None)):
+            del chunks[:]
+            before = LAUNCHES["coded_admm_update"]
+            t0 = time.perf_counter()
+            out[label] = run_sharded(kernel, *args, red, devices=devs, dtype=torch.float64)
+            seconds = time.perf_counter() - t0
+            k1 = LAUNCHES["coded_admm_update"] - before
+            if len(chunks) < 3 or k1 != iters * len(devs) * len(chunks):
+                raise AssertionError(f"sharded {label}: chunks {chunks}, K1 {k1}")
+            if red is None:
+                trace_chunks = list(chunks)
+            log(f"[sharded] {label} path: {len(cases)} runs x {iters} iters over "
+                f"{len(devs)} shards in {len(chunks)} chunks {chunks} "
+                f"(REPRO_SHARD_MEM_MB={budget_mb}), wall {seconds:.3f} s, K1 launches "
+                f"{k1} (iters x shards x chunks)")
+    finally:
+        driver._run_chunk = run_chunk
+        if old is None:
+            del os.environ["REPRO_SHARD_MEM_MB"]
+        else:
+            os.environ["REPRO_SHARD_MEM_MB"] = old
+    card = dict(device="cuda", dtype=torch.float64)
+    twins = shard_twins(kernel, args, trace_chunks, len(devs), torch.device("cuda"))
+    same_iterates("sharded trace path vs run_batch per shard", cases, out["trace"], twins)
+    for a, b in zip(out["trace"], twins):
+        if not (np.array_equal(a.sim_time, b.sim_time) and np.array_equal(a.comm_cost, b.comm_cost)):
+            raise AssertionError("sharded trace path: clocks differ")
+    whole = compare_traces("sharded trace path vs one run_batch",
+                           SimpleNamespace(cases=cases, traces=out["trace"]),
+                           SimpleNamespace(traces=run_batch(kernel, *args, **card)),
+                           rtol=1e-12, atol=0.0)
+    red_batch = run_batch(kernel, *args, spec.reductions, **card)
+    worst, explained = compare_summaries("sharded reduced", out["reduced"], red_batch,
+                                         spec.reductions, tol=1e-12)
+    if explained:
+        raise AssertionError(f"sharded reduced: {explained} discrete summaries differ")
+    log(f"[sharded] Trace path equals run_batch bit for bit in batches of the shards' "
+        f"shape ({len(cases)} runs), and one run_batch of all {len(cases)} runs within "
+        f"{whole:.3e} normwise (tolerance 1e-12); reduced path vs run_batch worst "
+        f"normwise gap {worst:.3e} (tolerance 1e-12), discrete summaries equal")
+
+
+def phase_multi_card():
+    """The sharded tier across every card of the host (not part of
+    ``main``, which needs one card; run it where there are several, e.g.
+    ``PYTHONPATH=src python3 -c "import chip_smoke as c; c.phase_build();
+    c.phase_multi_card()"``):
+    `mesh_scale` and a 240-run `fleet_frontier` slice with ``mode="auto"``
+    (sharded over every card) against ``mode="batched"`` (one card),
+    alternating, with wall times and K1 launches; the Trace path bit for
+    bit against its shard twins on card 0, and both paths normwise
+    against the one-card batch."""
+    from repro_torch.experiments import get_sweep, run_sweep
+    from repro_torch.experiments import sweep as engine
+    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.methods import get_kernel
+
+    D = torch.cuda.device_count()
+    if D < 2:
+        raise AssertionError(f"phase_multi_card needs several cards, found {D}")
+    card = dict(device="cuda", dtype=torch.float64)
+    for name, kw in (("mesh_scale", dict(iters=600)), ("fleet_frontier", dict(iters=300, runs=20))):
+        spec = get_sweep(name, **kw)
+        walls, out = {}, {}
+        for mode in ("batched", "auto", "batched", "auto"):
+            LAUNCHES["coded_admm_update"] = 0
+            t0 = time.perf_counter()
+            res = run_sweep(spec, mode=mode, **card)
+            walls.setdefault(res.mode, []).append(time.perf_counter() - t0)
+            out[res.mode] = res
+            log(f"[multi-card] {name} mode {mode} -> {res.mode} on {res.n_devices} card(s): "
+                f"{len(res.cases)} runs, wall {walls[res.mode][-1]:.3f} s, K1 launches "
+                f"{LAUNCHES['coded_admm_update']}")
+        sharded, batched = out["sharded"], out["batched"]
+        if sharded.n_devices != D:
+            raise AssertionError(f"{name}: sharded over {sharded.n_devices} of {D} cards")
+        if sharded.reduced is not None:
+            worst, explained = compare_summaries(name, sharded.reduced, batched.reduced,
+                                                 spec.reductions, tol=1e-12)
+            if explained:
+                raise AssertionError(f"{name}: {explained} discrete summaries differ")
+            detail = f"summaries within {worst:.3e} of one card's (tolerance 1e-12)"
+        else:
+            worst = compare_traces(name, sharded, batched, rtol=1e-12, atol=0.0)
+            kernel, cases = get_kernel(spec.base.method), sharded.cases
+            nc, pc = {}, {}
+            mats = [engine._materialize(c, nc, pc) for c in cases]
+            args = ([m[1] for m in mats], [m[0] for m in mats],
+                    [kernel.config(c) for c in cases], cases[0].iters)
+            twins = shard_twins(kernel, args, [len(cases)], D, torch.device("cuda", 0))
+            same_iterates(f"{name} shards vs twins", cases, sharded.traces, twins)
+            detail = (f"traces bit for bit their shard twins on card 0, within {worst:.3e} of "
+                      f"one card's batch (tolerance 1e-12)")
+        log(f"[multi-card] {name} over {D} cards: {detail}; walls "
+            + json.dumps({k: [round(x, 3) for x in v] for k, v in walls.items()}))
+
+
+def phase_async():
+    """`staleness_frontier` and `churn_grid` at registry size, card against
+    CPU; then on the card each sync arm (tau_max = 0, churn_rate = 0) bit for
+    bit against the same cases run as a sync-only sweep (a batch of the same
+    shape)."""
+    from repro_torch.experiments import run_sweep
+
+    card = dict(device="cuda", dtype=torch.float64)
+    for name, sync_field, groups in (("staleness_frontier", "tau_max", 8),
+                                     ("churn_grid", "churn_rate", 2)):
+        gpu, rows = sweep_card_vs_cpu("async", name)
+        if gpu.n_dispatches != groups:
+            raise AssertionError(f"{name}: {gpu.n_dispatches} groups, want {groups}")
+        sync = [j for j, c in enumerate(gpu.cases) if getattr(c, sync_field) == 0.0]
+        twins = run_sweep([gpu.cases[j] for j in sync], **card)
+        same_iterates(f"{name} sync arm vs sync-only twin", [gpu.cases[j] for j in sync],
+                      [gpu.traces[j] for j in sync], twins.traces)
+        cells = {}
+        for c, t in zip(gpu.cases, gpu.traces):
+            key = c.label("method", sync_field) if name == "staleness_frontier" else c.label(
+                "scheme", sync_field)
+            cells.setdefault(key, []).append(float(t.accuracy[-1]))
+        log(f"[async] {name}: {gpu.n_dispatches} groups; sync arm equals its sync-only "
+            f"twin bit for bit ({len(sync)} runs); final accuracy per cell (mean of "
+            f"seeds): " + json.dumps({k: float(np.mean(v)) for k, v in cells.items()}))
+
+
+def phase_adaptive():
+    """`adaptive_frontier` at registry size, card against CPU; then on the
+    card `device_pulls` against the host `replay` for both algorithms
+    (exactly), and a single-arm controller against the static csI-ADMM run
+    bit for bit."""
+    from repro_torch.control import ADAPTIVE_KERNEL, device_pulls
+    from repro_torch.experiments import get_sweep, run_sweep
+    from repro_torch.experiments import sweep as engine
+
+    gpu, _ = sweep_card_vs_cpu("adaptive", "adaptive_frontier")
+    spec = get_sweep("adaptive_frontier")
+    for algo in ("ucb1", "exp3"):
+        case = [c for c in spec.cases() if c.bandit == algo][0]
+        net, prob = engine._materialize(case, {}, {})
+        run = ADAPTIVE_KERNEL.config(case)
+        t0 = time.perf_counter()
+        dev = device_pulls(prob, net, run, case.iters, device="cuda")
+        seconds = time.perf_counter() - t0
+        host = ADAPTIVE_KERNEL._arm_tables(prob, net, run, case.iters)["pulls"]
+        flips = np.flatnonzero(dev != host)
+        if flips.size:
+            raise AssertionError(f"device_pulls {algo}: the card flips arms at iterations "
+                                 f"{flips[:10].tolist()} of {case.iters}")
+        log(f"[adaptive] device_pulls {algo} on the card equals replay over {case.iters} "
+            f"iterations ({seconds:.3f} s); pulls per arm {np.bincount(dev, minlength=len(run.arms)).tolist()}")
+    card = dict(device="cuda", dtype=torch.float64)
+    base = [c for c in spec.cases() if c.bandit == "ucb1"][0]
+    for scheme, S, deadline in base.arms[::2]:
+        one = dataclasses.replace(base, arms=((scheme, S, deadline),))
+        static = dataclasses.replace(one, method="csI-ADMM", scheme=scheme, S=S,
+                                     deadline=deadline, arms=())
+        res = run_sweep([one, static], **card)
+        same_iterates(f"single arm {scheme} S={S} vs csI-ADMM", [one], res.traces[:1],
+                      res.traces[1:])
+    log(f"[adaptive] single-arm controllers equal the static csI-ADMM run bit for bit "
+        f"on the card ({len(base.arms[::2])} arms); final accuracy per bandit (mean of "
+        f"seeds): " + json.dumps({a: float(np.mean([t.accuracy[-1] for c, t in gpu.select(bandit=a)]))
+                                  for a in ("ucb1", "exp3")}))
 
 
 def normwise_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1424,6 +1899,10 @@ def main() -> int:
     phase_baselines()
     phase_variants()
     phase_grids()
+    phase_fleet()
+    phase_sharded()
+    phase_async()
+    phase_adaptive()
     qwen = phase_serve("serve-qwen3", "qwen3-0.6b", 4, 2048, 32, "flash_attention", 28,
                        K3_KERNELS)
     rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16, "rglru_scan", 26,

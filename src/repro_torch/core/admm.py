@@ -80,11 +80,7 @@ class ADMMConfig:
 
 @dataclasses.dataclass
 class Trace:
-    """Per-iteration experiment record (all numpy, length = iters).
-
-    The reference's ``Trace.reduce`` (streaming summaries) waits for the
-    port of `repro.methods.reductions` (ROADMAP Queue 1, item 10).
-    """
+    """Per-iteration experiment record (all numpy, length = iters)."""
 
     accuracy: np.ndarray  # eq. (23) relative error
     test_error: np.ndarray  # MSE of the token z on the test set
@@ -93,6 +89,17 @@ class Trace:
     z_err: np.ndarray  # ||z - x*|| / ||x*||
     final_x: np.ndarray  # (N, p, d)
     final_z: np.ndarray  # (p, d)
+
+    def reduce(self, spec) -> dict:
+        """Post-hoc streaming summaries of this trace.
+
+        ``spec`` is a `repro_torch.methods.reductions.Reduction`; the
+        result matches what the drivers' in-loop fold produces for the
+        same run — the upgrade path from materialized to streaming sweeps.
+        """
+        from repro_torch.methods.reductions import reduce_trace  # no cycle
+
+        return reduce_trace(spec, self)
 
 
 def make_schedule(

@@ -524,8 +524,8 @@ def check_arm_set(arms, K: int) -> None:
     """Validate a controller arm set without building anything.
 
     ``arms`` is a sequence of ``(scheme, S, deadline)`` cells — the
-    frontier coordinates the bandit of `repro.control` (not yet ported)
-    selects among.
+    frontier coordinates the bandit of `repro_torch.control` selects
+    among.
     EVERY arm is checked before ANY code is constructed, so an
     infeasible cell surfaces at arm-set construction with the same
     uniform ``'<family>' code infeasible`` message `make_code` raises —

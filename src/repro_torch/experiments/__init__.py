@@ -13,6 +13,8 @@ PyTorch port of `repro.experiments`:
   axes and CSV row emission.
 """
 
+from repro_torch.methods import Reduction, reduce_trace
+
 from .registry import SWEEPS, get_sweep
 from .results import emit_rows, mean_ci, reduce_mean, resample_runs, stack_field
 from .sweep import Case, SweepResult, SweepSpec, run_sweep
@@ -22,6 +24,8 @@ __all__ = [
     "SweepSpec",
     "SweepResult",
     "run_sweep",
+    "Reduction",
+    "reduce_trace",
     "SWEEPS",
     "get_sweep",
     "mean_ci",

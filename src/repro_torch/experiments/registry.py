@@ -1,22 +1,23 @@
 """Named sweeps: the paper figures + beyond-paper grids.
 
-PyTorch port of `repro.experiments.registry`, limited to the sweeps whose
-methods are ported: the paper's figures (``fig3_minibatch``,
-``fig3_baselines``, ``fig3_stragglers``, ``fig3e_runtime``,
-``fig4_baselines``, ``fig4_stragglers``, ``fig5``) and the beyond-paper
-grids ``topology_grid``, ``privacy_grid``, ``code_frontier``,
-``compression_grid``, ``hetero_grid`` and ``mesh_scale`` (run batched; the
-sharded tier is ROADMAP Queue 1, item 13). ``fleet_frontier`` (streaming
-reductions, item 10), ``staleness_frontier`` and ``churn_grid`` (async
-mode, item 11) and ``adaptive_frontier`` (bandit control, item 12) follow
-their layers in later slices. Each factory returns a `SweepSpec`; pass
-``iters=``/``runs=`` overrides for smoke runs.
+PyTorch port of `repro.experiments.registry`, all 17 of its sweeps: the
+paper's figures (``fig3_minibatch``, ``fig3_baselines``,
+``fig3_stragglers``, ``fig3e_runtime``, ``fig4_baselines``,
+``fig4_stragglers``, ``fig5``) and the beyond-paper grids
+``topology_grid``, ``privacy_grid``, ``code_frontier``,
+``adaptive_frontier`` (bandit control), ``compression_grid``,
+``hetero_grid``, ``mesh_scale``, ``fleet_frontier`` (streaming reductions
+at fleet scale), ``staleness_frontier`` and ``churn_grid`` (async mode).
+Each factory returns a `SweepSpec`; pass ``iters=``/``runs=`` overrides
+for smoke runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
+
+from repro_torch.methods.reductions import Reduction
 
 from .sweep import Case, SweepSpec
 
@@ -264,15 +265,64 @@ def code_frontier(iters: int = 800, runs: int = 3) -> SweepSpec:
     )
 
 
+# The code_frontier grid's distinct cells as a controller arm set: the
+# exact cyclic family at both straggler tolerances plus the
+# partial-recovery family under both decode deadlines (DESIGN.md §15).
+# (mds cells are omitted: an exact decode at R responses observes the
+# identical response clock as cyclic at equal S — a duplicate arm.)
+FRONTIER_ARMS = (
+    ("cyclic", 1, None),
+    ("cyclic", 2, None),
+    ("approx", 1, 3e-4),
+    ("approx", 1, 1e-3),
+    ("approx", 2, 3e-4),
+    ("approx", 2, 1e-3),
+)
+
+
+def adaptive_frontier(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Beyond-paper headline: ONLINE selection over the code_frontier.
+
+    The a-csI-ADMM controller runs the exact `code_frontier` fleet —
+    same problem, same straggler regime, same seeds — but must FIND the
+    best (family, S, deadline) cell from observed iteration wall-clock
+    instead of being told: the response distribution is hidden from the
+    bandit, which only sees the reward of the arm it pulls. Both
+    policies per seed; each policy is one static group, so the whole
+    grid is TWO step loops. Headline gate
+    (EXPERIMENTS.md 'Adaptive control'): accuracy-at-time-budget within
+    10% of the best fixed cell, strictly better than the worst.
+    """
+    return SweepSpec(
+        "adaptive_frontier",
+        Case(
+            method="a-csI-ADMM", dataset="synthetic", K=6, M=360,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+            p_straggle=0.3, delay=5e-3, arms=FRONTIER_ARMS,
+            # Tuned on the host replay for THIS fleet's reward gaps
+            # (best-vs-second mean-reward gap ~0.01): UCB1's default
+            # c=0.5 over-explores 6 close arms; EXP3 needs a hotter
+            # learning rate and less forced exploration to separate
+            # the top cluster within 800 pulls.
+            bandit_c=0.1, bandit_eta=0.15, bandit_gamma=0.05,
+        ),
+        axes={
+            "bandit": ["ucb1", "exp3"],
+            "seed": list(range(runs)),
+        },
+        description="online bandit control over the code/deadline frontier",
+        x_axis="sim_time",
+    )
+
+
 def mesh_scale(iters: int = 600, runs: int = 16) -> SweepSpec:
     """Beyond-paper: the fig5 grid at mesh scale (48 runs default — the
     2x2x16 axis product is 64 grid points, but the `_coded_scheme` fixup
     merges the S=0 cyclic/fractional points into one uncoded case).
 
-    Built to saturate a multi-device mesh: S x scheme x 16 seeds is one
-    static group, so the whole grid is ONE batch on the runs axis. The
-    port runs it batched on one device; splitting the runs axis over
-    several is the sharded tier (ROADMAP Queue 1, item 13).
+    Built to saturate several devices: S x scheme x 16 seeds is one
+    static group, so the whole grid is ONE step loop whose runs axis
+    splits evenly over 1/2/4/8 devices in the sharded mode.
     """
     return SweepSpec(
         "mesh_scale",
@@ -348,6 +398,112 @@ def hetero_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
     )
 
 
+def fleet_frontier(iters: int = 1000, runs: int = 1000) -> SweepSpec:
+    """Fleet-scale headline: heavy-tailed fleets x code family x S.
+
+    The regime the streaming-reduction layer exists for: thousands of
+    independent straggler realizations (2 response tails x 3 code
+    families x 2 tolerances x ``runs`` seeds = 12 x runs grid points) at
+    agent populations where materializing per-iteration Traces would be
+    O(iters x runs) memory. The declared `Reduction` keeps everything
+    the frontier needs — accuracy/test-error at sim-time budgets,
+    time-to-accuracy targets, trajectory quantiles — in O(grid) memory,
+    so the default grid (12,000 runs) runs in a handful of chunks under
+    REPRO_SHARD_MEM_MB (EXPERIMENTS.md 'Fleet scale'). Lognormal vs
+    Pareto base responses (finite vs infinite variance) with a planted
+    4x speed class, against cyclic/MDS exact decoding and the
+    deadline-truncated approximate family (DESIGN.md §11).
+    """
+    return SweepSpec(
+        "fleet_frontier",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+            p_straggle=0.3, delay=5e-3, speed_classes=(1.0, 1.0, 4.0),
+        ),
+        axes={
+            "response": ["lognormal", "pareto"],
+            "scheme": [
+                {"scheme": "cyclic"},
+                {"scheme": "mds"},
+                {"scheme": "approx", "deadline": 3e-4},
+            ],
+            "S": [1, 2],
+            "seed": list(range(runs)),
+        },
+        description="heavy-tailed fleet x code family x S, streaming "
+        "reductions at fleet scale",
+        x_axis="sim_time",
+        reductions=Reduction(
+            fields=("accuracy", "test_error"),
+            budgets=(0.25, 0.5, 1.0, 2.0),
+            x="sim_time",
+            targets=(0.5, 0.2, 0.1),
+            quantiles=(0.1, 0.5, 0.9),
+        ),
+    )
+
+
+def staleness_frontier(iters: int = 800, runs: int = 2) -> SweepSpec:
+    """Event-driven headline: convergence vs staleness bound x method.
+
+    csI-ADMM's token and the gossip methods' broadcasts land with a
+    bounded simulated delay tau ~ U(0, tau_max]; tau_max = 0 is the
+    bulk-synchronous control arm and keeps the synchronous path (and
+    static signature), so each method contributes exactly two groups:
+    one sync, one async ring. All schedules are host-side step inputs —
+    the whole async half of the grid per method is ONE step loop however
+    many tau_max values it spans.
+    """
+    return SweepSpec(
+        "staleness_frontier",
+        Case(
+            method="csI-ADMM", dataset="usps", K=3, M=60, scheme="cyclic",
+            S=1, alpha=0.05, iters=iters, p_straggle=0.3, delay=5e-3,
+        ),
+        axes={
+            "method": ["csI-ADMM", "D-ADMM", "DGD", "EXTRA"],
+            "tau_max": [0.0, 5e-4, 2e-3, 8e-3],
+            "seed": list(range(runs)),
+        },
+        fixup=_gossip_iters,
+        description="staleness bound tau_max x method, sync arm bit-exact",
+        x_axis="sim_time",
+    )
+
+
+def churn_grid(iters: int = 800, runs: int = 3) -> SweepSpec:
+    """Event-driven headline: accuracy under churn rate x code family.
+
+    Agents and ECNs crash/recover as an alternating-renewal process
+    (mean uptime 1/churn_rate, mean repair mttr); crashed ECNs are
+    censored from the alive mask before decode, so each family's
+    decodable-pattern set is what is being stress-tested: cyclic decodes
+    only contiguous-ish R-subsets, MDS any R survivors, and the approx
+    family's deadline decode degrades gracefully below R. churn_rate = 0
+    is the synchronous control arm (the sync path).
+    """
+    return SweepSpec(
+        "churn_grid",
+        Case(
+            method="csI-ADMM", dataset="synthetic", K=6, M=360, S=2,
+            scheme="cyclic", c_tau=0.5, iters=iters,
+            p_straggle=0.3, delay=5e-3, mttr=0.05,
+        ),
+        axes={
+            "scheme": [
+                {"scheme": "cyclic"},
+                {"scheme": "mds"},
+                {"scheme": "approx", "deadline": 3e-4},
+            ],
+            "churn_rate": [0.0, 5.0, 25.0],
+            "seed": list(range(runs)),
+        },
+        description="churn rate x code family under elastic-fleet decode",
+        x_axis="sim_time",
+    )
+
+
 SWEEPS: Dict[str, Callable[..., SweepSpec]] = {
     "fig3_minibatch": fig3_minibatch,
     "fig3_baselines": fig3_baselines,
@@ -359,9 +515,13 @@ SWEEPS: Dict[str, Callable[..., SweepSpec]] = {
     "topology_grid": topology_grid,
     "privacy_grid": privacy_grid,
     "code_frontier": code_frontier,
+    "adaptive_frontier": adaptive_frontier,
     "compression_grid": compression_grid,
     "hetero_grid": hetero_grid,
     "mesh_scale": mesh_scale,
+    "fleet_frontier": fleet_frontier,
+    "staleness_frontier": staleness_frontier,
+    "churn_grid": churn_grid,
 }
 
 
@@ -369,7 +529,7 @@ def get_sweep(name: str, **overrides) -> SweepSpec:
     """Look up a named sweep; ``overrides`` go to the factory (iters/runs)."""
     if name not in SWEEPS:
         raise KeyError(
-            f"unknown or not yet ported sweep {name!r}; ported: "
+            f"unknown sweep {name!r}; known: "
             f"{sorted(SWEEPS)}"
         )
     return SWEEPS[name](**overrides)

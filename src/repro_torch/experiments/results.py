@@ -1,7 +1,6 @@
 """Reduction + emission for sweep results (DESIGN.md §7, §10).
 
-Numpy-only port of `repro.experiments.results` (the streamed-summary
-branch waits for streaming reductions, ROADMAP Queue 1 item 10).
+Numpy-only port of `repro.experiments.results`.
 
 Mean/CI over the seed axis (the paper averages Figs. 3-5 over independent
 runs) and CSV emission compatible with `benchmarks.common.Rows`.
@@ -129,11 +128,29 @@ def reduce_mean(
     Returns {key_tuple: {"mean": (P,), "ci": (P,), "n": int,
     "cases": [Case, ...][, "x": (P,) grid]}} with keys ordered by first
     appearance (P = iters, or n_points when resampled).
+
+    Streamed results (``result.reduced`` set) reduce the pre-summarized
+    grid arrays instead: ``field`` may be a full reduction key
+    ("accuracy/at_budget") or a plain metric name (mapped to
+    "{field}/final"), and ``x`` is ignored — budget/target axes are
+    declared in the `Reduction` spec, so there is nothing to resample.
     """
     groups: Dict[tuple, List[int]] = {}
     for i, c in enumerate(result.cases):
         key = tuple(getattr(c, f) for f in by)
         groups.setdefault(key, []).append(i)
+    reduced = getattr(result, "reduced", None)
+    if reduced is not None:
+        vals = _reduced_field(reduced, field)
+        out = {}
+        for key, idxs in groups.items():
+            entry = {
+                "n": len(idxs),
+                "cases": [result.cases[i] for i in idxs],
+            }
+            entry["mean"], entry["ci"] = mean_ci(vals[idxs], axis=0, z=z)
+            out[key] = entry
+        return out
     out: Dict[tuple, dict] = {}
     for key, idxs in groups.items():
         traces = [result.traces[i] for i in idxs]
@@ -147,6 +164,20 @@ def reduce_mean(
         entry["mean"], entry["ci"] = mean_ci(stacked, axis=0, z=z)
         out[key] = entry
     return out
+
+
+def _reduced_field(reduced: Dict[str, np.ndarray], field: str) -> np.ndarray:
+    """Resolve a field name against a streamed summary dict: exact key
+    first, then the metric's "/final" readout."""
+    if field in reduced:
+        return reduced[field]
+    final = f"{field}/final"
+    if final in reduced:
+        return reduced[final]
+    raise KeyError(
+        f"field {field!r} not in the streamed reduction; available: "
+        f"{sorted(reduced)}"
+    )
 
 
 def emit_rows(
@@ -172,7 +203,11 @@ def emit_rows(
         case = r["cases"][0]
         kv = ",".join(f"{f}={v}" for f, v in zip(by, key) if f != "method")
         name = f"{prefix}/{case.method}" + (f"[{kv}]" if kv else "")
-        mean, ci = r["mean"], r["ci"]
+        # Streamed summaries may be scalar per run (a "/final" readout) or
+        # a budget/target vector; the derived column reads the last entry
+        # either way, matching the materialized path's final-grid-point
+        # convention.
+        mean, ci = np.atleast_1d(r["mean"]), np.atleast_1d(r["ci"])
         derived = (
             f"final_{field}={mean[-1]:.5f};ci={ci[-1]:.5f};"
             f"runs={r['n']}"

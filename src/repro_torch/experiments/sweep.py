@@ -11,10 +11,14 @@ kernel) and runs each group as one batch on a leading runs axis
 sampling (topology, data allocation, straggler times, decode vectors)
 stays per-run and is stacked into the batch's per-step inputs.
 
-Modes: "serial" (one run at a time) and "batched"; "auto" resolves to
-"batched". The sharded tier (ROADMAP Queue 1, item 13) and streaming
-reductions (item 10) are not ported yet. There is no compile cache to
-manage: PyTorch runs eagerly.
+Modes: "serial" (one run at a time), "batched" (one device) and
+"sharded" (the runs axis split over several devices,
+`repro_torch.methods.run_sharded`); "auto" resolves to "sharded" if and
+only if ``device`` is CUDA and more than one CUDA device is visible, else
+"batched". With a `Reduction` (``reductions=`` or the spec's own) the
+groups fold fixed-size summaries in their step loops instead of keeping
+Traces, and the result carries them in grid order (``reduced``). There is
+no compile cache to manage: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,14 +28,23 @@ import itertools
 import time
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.admm import ADMMConfig, Trace
 from repro_torch.core.graph import Network, make_network
 from repro_torch.core.problems import DATASETS, LeastSquaresProblem, allocate
 from repro_torch.core.timing import TimingModel
-from repro_torch.methods import KERNELS, get_kernel, run_batch, run_serial
+from repro_torch.methods import (
+    KERNELS,
+    Reduction,
+    get_kernel,
+    run_batch,
+    run_serial,
+    run_sharded,
+)
 from repro_torch.methods.base import resolve_device
+from repro_torch.methods.driver import shard_devices
 
 MODES = ("auto", "serial", "batched", "sharded")
 
@@ -152,6 +165,12 @@ class SweepSpec:
     # index, or a cumulative Trace field ("sim_time"/"comm_cost") that
     # `reduce_mean`/`emit_rows` resample runs onto (DESIGN.md §10).
     x_axis: Optional[str] = None
+    # Streaming reductions: when set, run_sweep folds these fixed-size
+    # summaries into each group's step loop instead of keeping per-
+    # iteration Traces — memory O(grid), the fleet-scale path. None keeps
+    # the full-Trace default.
+    reductions: Optional[Reduction] = None
+
     def cases(self) -> List[Case]:
         names = list(self.axes)
         cases: List[Case] = []
@@ -173,7 +192,7 @@ class SweepSpec:
 
 @dataclasses.dataclass
 class SweepResult:
-    """Per-case traces + how the grid was batched onto the device."""
+    """Per-case traces + how the grid was batched onto the device(s)."""
 
     cases: List[Case]
     traces: List[Trace]
@@ -181,6 +200,11 @@ class SweepResult:
     wall_s: float
     mode: str = "batched"
     device: str = "cuda"
+    n_devices: int = 1
+    # Streaming-sweep output: flat summary dict keyed "{field}/{stat}",
+    # each value a (n_cases, ...) array in grid order. Exactly one of
+    # ``traces`` / ``reduced`` is populated.
+    reduced: Optional[Dict[str, np.ndarray]] = None
 
     @property
     def n_dispatches(self) -> int:
@@ -247,59 +271,85 @@ def _dispatch_group(
     mode: str,
     device: torch.device,
     dtype: torch.dtype,
-) -> List[Trace]:
-    """Registry lookup + the derived execution backend."""
+    reductions: Optional[Reduction] = None,
+    devices: Optional[List[torch.device]] = None,
+):
+    """Registry lookup + the derived execution backend.
+
+    Returns the group's per-run `Trace`s — or, with ``reductions``, one
+    dict of (group_size, ...) summary arrays (serial runs are stacked
+    host-side to the same shape)."""
     kernel = get_kernel(method)
     iters = cases[0].iters
     cfgs = [kernel.config(c) for c in cases]
     kw = dict(device=device, dtype=dtype)
     if mode == "serial":
-        return [
-            run_serial(kernel, p, n, cf, iters, **kw)
+        runs = [
+            run_serial(kernel, p, n, cf, iters, reductions, **kw)
             for p, n, cf in zip(probs, nets, cfgs)
         ]
-    return run_batch(kernel, probs, nets, cfgs, iters, **kw)
+        if reductions is None:
+            return runs
+        return {k: np.stack([r[k] for r in runs]) for k in runs[0]}
+    if mode == "sharded":
+        return run_sharded(
+            kernel, probs, nets, cfgs, iters, reductions,
+            devices=devices, dtype=dtype,
+        )
+    return run_batch(kernel, probs, nets, cfgs, iters, reductions, **kw)
 
 
-def _resolve_mode(mode: str) -> str:
-    """``auto`` is "batched" (one device; the sharded tier is not
-    ported)."""
+def _resolve_mode(mode: str, device: torch.device) -> str:
+    """``auto`` is "sharded" iff ``device`` is CUDA and more than one CUDA
+    device is visible, else "batched"."""
     if mode not in MODES:
         raise ValueError(f"unknown sweep mode {mode!r}; known: {MODES}")
-    if mode == "sharded":
-        raise NotImplementedError(
-            "sweep mode 'sharded' is not ported yet: ROADMAP Queue 1, item 13"
-        )
-    return "batched" if mode == "auto" else mode
+    if mode == "auto":
+        many = device.type == "cuda" and torch.cuda.device_count() > 1
+        return "sharded" if many else "batched"
+    return mode
+
+
+def _shard_devices(devices, device: torch.device) -> List[torch.device]:
+    """The sharded mode's device list: ``devices`` as given, else every
+    visible CUDA device when ``device`` is CUDA, else ``device`` alone."""
+    if devices is None and device.type != "cuda":
+        return [device]
+    return shard_devices(devices)
 
 
 def run_sweep(
     spec_or_cases,
     *,
     mode: str = "auto",
-    reductions=None,
+    reductions: Optional[Reduction] = None,
     device="cuda",
     dtype: torch.dtype = torch.float32,
+    devices: Optional[Sequence] = None,
 ) -> SweepResult:
-    """Execute a sweep: one batch per static-signature group.
+    """Execute a sweep: one step loop per static-signature group.
 
     Args:
       spec_or_cases: a `SweepSpec` or an explicit list of `Case`s.
       mode: "batched" (one step loop per group over a runs axis), "serial"
-        (each case on its own: the same step over a runs axis of one), or
-        "auto" (= "batched").
-      reductions: not ported yet (ROADMAP Queue 1, item 10); must be None.
+        (each case on its own: the same step over a runs axis of one),
+        "sharded" (each group's runs axis split over ``devices``), or
+        "auto" (see `_resolve_mode`).
+      reductions: a `Reduction` to fold in the step loop instead of
+        keeping Traces; defaults to the spec's own ``reductions`` when a
+        `SweepSpec` is passed. The result then carries ``reduced``
+        (grid-ordered summary arrays) and an empty ``traces``.
       device: where the device side runs (default "cuda"; raises if no
         card is present — pass "cpu" to run on the CPU).
       dtype: float dtype of the device side (torch.float32 or float64).
+      devices: the sharded mode's device list (default: every visible
+        CUDA device when ``device`` is CUDA, else ``device``).
 
-    Returns a `SweepResult` with traces in the original grid order.
+    Returns a `SweepResult` with traces (or reduced summaries) in the
+    original grid order.
     """
-    if reductions is not None:
-        raise NotImplementedError(
-            "streaming reductions (reductions=) are not ported yet: "
-            "ROADMAP Queue 1, item 10"
-        )
+    if reductions is None and isinstance(spec_or_cases, SweepSpec):
+        reductions = spec_or_cases.reductions
     cases = (
         spec_or_cases.cases()
         if isinstance(spec_or_cases, SweepSpec)
@@ -307,8 +357,9 @@ def run_sweep(
     )
     if not cases:
         raise ValueError("empty sweep")
-    mode = _resolve_mode(mode)
     device = resolve_device(device)
+    mode = _resolve_mode(mode, device)
+    devs = _shard_devices(devices, device) if mode == "sharded" else [device]
 
     t0 = time.perf_counter()
     net_cache: Dict[tuple, Network] = {}
@@ -321,16 +372,35 @@ def run_sweep(
         groups.setdefault(_signature(case, prob), []).append(idx)
 
     traces: List[Optional[Trace]] = [None] * len(cases)
+    rows: List[Optional[dict]] = [None] * len(cases)
     group_meta: List[Tuple[tuple, int]] = []
     for sig, idxs in groups.items():
         gcases = [cases[i] for i in idxs]
         gout = _dispatch_group(
             gcases[0].method, gcases, [mats[i][0] for i in idxs],
             [mats[i][1] for i in idxs], mode, device, dtype,
+            reductions, devs,
         )
-        for i, tr in zip(idxs, gout):
-            traces[i] = tr
+        if reductions is not None:
+            # Scatter the group's (group_size, ...) summary arrays back
+            # into grid order; stacked once below.
+            for j, i in enumerate(idxs):
+                rows[i] = {k: v[j] for k, v in gout.items()}
+        else:
+            for i, tr in zip(idxs, gout):
+                traces[i] = tr
         group_meta.append((sig, len(idxs)))
+
+    reduced = None
+    if reductions is not None:
+        keys = rows[0].keys()
+        if any(r.keys() != keys for r in rows[1:]):
+            raise ValueError(
+                "sweep groups produced different reduction keys; all "
+                "groups must share one Reduction spec"
+            )
+        reduced = {k: np.stack([r[k] for r in rows]) for k in keys}
+        traces = []
 
     return SweepResult(
         cases=cases,
@@ -339,4 +409,6 @@ def run_sweep(
         wall_s=time.perf_counter() - t0,
         mode=mode,
         device=str(device),
+        n_devices=len(devs),
+        reduced=reduced,
     )

@@ -2,17 +2,16 @@
 
 PyTorch port of `repro.methods`. Each method is a `MethodKernel` —
 host-side ``prepare`` plus device-side ``setup``/``init``/``step``/
-``final`` — and `repro_torch.methods.driver` derives ``run_serial`` and
-``run_batch`` from it. Importing this package populates the `KERNELS`
-registry with what is ported:
+``final`` — and `repro_torch.methods.driver` derives ``run_serial``,
+``run_batch`` and ``run_sharded`` from it, each with or without a
+streaming `Reduction`. Importing this package populates the `KERNELS`
+registry with all of `repro`'s methods:
 
   sI-ADMM / csI-ADMM / I-ADMM  (paper Algorithms 1 & 2, eq. 4)
   W-ADMM, D-ADMM, DGD, EXTRA   (paper §V-A baselines)
   pI-ADMM                      (privacy-perturbed, arXiv 2003.10615)
   cq-sI-ADMM                   (compressed token, arXiv 2501.13516)
-
-Streaming reductions, the async mode, the bandit controller (a-csI-ADMM)
-and the sharded tier come in later slices (ROADMAP Queue 1, items 10-13).
+  a-csI-ADMM                   (bandit-controlled frontier, `repro_torch.control`)
 """
 
 from .admm import ADMMRun, IncrementalADMM
@@ -29,7 +28,14 @@ from .compression import CompressionRun
 from .driver import run_batch, run_serial, run_sharded, run_steps
 from .gossip import DADMM, DGD, EXTRA, GossipRun
 from .privacy import PrivacyRun
+from .reductions import METRIC_FIELDS, Reduction, reduce_trace
 from .walkman import WalkmanADMM
+
+# The adaptive controller kernel lives in `repro_torch.control` (it
+# layers on top of the ADMM family) but registers in the same table: a
+# plain module import, last, so `.admm` is complete, and attribute-free,
+# so a controller-first import order cannot deadlock this package.
+import repro_torch.control.kernel  # noqa: E402,F401
 
 __all__ = [
     "MethodKernel",
@@ -43,6 +49,9 @@ __all__ = [
     "run_batch",
     "run_sharded",
     "run_steps",
+    "Reduction",
+    "reduce_trace",
+    "METRIC_FIELDS",
     "ADMMRun",
     "GossipRun",
     "PrivacyRun",

@@ -19,11 +19,21 @@ a whole straggler-tolerance sweep shares one batch. I-ADMM (exact_x)
 replaces the stochastic x-update with the closed-form full-batch solve
 (eq. 4a, `torch.linalg.solve`).
 
-Only the synchronous path is ported: a timing model that ``is_async``
-raises (ROADMAP Queue 1, item 11). The hooks ``_select_arm``,
-``_perturb_x``, ``_token_increment`` and ``_token_update`` are kept so the
-variants (privacy, compression, control) subclass without touching the
-step.
+Event-driven mode: when the run's `TimingModel` is async (``tau_max > 0``
+or ``churn_rate > 0``) the token increment dz of iteration k lands with a
+bounded simulated delay instead of at once. The carry holds a ``pend``
+ring of ``staleness_cap`` in-flight increments per run, (R, D, p, d);
+host-computed write/read slots and the activity gate are THREE step
+inputs appended after every subclass extra (read by negative index, so
+the hooks' positional inputs keep their places). A skipped activation
+(crashed agent, undecodable churned pattern — `make_schedule`) gates x, y
+and dz to exact zeros. Sync runs keep the exact pre-async signature,
+statics and steps, hence the same arithmetic.
+
+The hooks ``_select_arm`` (a-csI-ADMM, `repro_torch.control.kernel`),
+``_perturb_x`` (pI-ADMM), ``_token_increment`` (cq-sI-ADMM) and
+``_token_update`` (the async ring) let the variants subclass without
+touching the step.
 """
 
 from __future__ import annotations
@@ -74,12 +84,17 @@ class IncrementalADMM(MethodKernel):
         self, problem: LeastSquaresProblem, run: ADMMRun, iters: int
     ) -> tuple:
         cfg = run.cfg
-        return (
+        sig = (
             self.name,
             problem.N, problem.b, problem.p, problem.d,
             problem.O_test.shape[0],
             cfg.K, problem.b // cfg.K, cfg.exact_x, iters,
         )
+        if run.timing is not None and run.timing.is_async:
+            # Async runs carry the pend ring and three more step inputs:
+            # a group of their own per ring depth.
+            sig += ("async", run.timing.staleness_cap)
+        return sig
 
     def prepare(
         self,
@@ -91,11 +106,6 @@ class IncrementalADMM(MethodKernel):
         cfg = run.cfg
         cfg.validate()
         timing = run.timing or TimingModel()
-        if timing.is_async:
-            raise NotImplementedError(
-                "event-driven timing (tau_max > 0 or churn_rate > 0) is not "
-                "ported yet: ROADMAP Queue 1, item 11 (async mode)"
-            )
         code = run.code or make_code(cfg.scheme, cfg.K, cfg.S, seed=cfg.seed)
         if code.K != cfg.K or code.S != cfg.S:
             raise ValueError("code does not match config (K, S)")
@@ -126,6 +136,24 @@ class IncrementalADMM(MethodKernel):
                 wmask.astype(dt),
             ),
         )
+        statics = self._statics(run, problem, iters, sched)
+        if timing.is_async:
+            # Write/read ring slots + activity gate, after subclass extras.
+            # Staleness is sampled on the run's own clock (stream [7,
+            # seed]); a delay of d in [0, D-1] steps lands the increment
+            # written at iteration k at the end of iteration k + d (d = 0
+            # is the synchronous landing).
+            D = timing.staleness_cap
+            delta = timing.staleness_steps(
+                sim_time, np.random.default_rng([7, cfg.seed])
+            )
+            k = np.arange(iters)
+            steps = steps + (
+                ((k + delta) % D).astype(np.int32),
+                (k % D).astype(np.int32),
+                sched["act"].astype(dt),
+            )
+            statics = dict(statics, ASYNC=True, D=D)
         return Prepared(
             consts=(
                 problem.O,
@@ -137,11 +165,17 @@ class IncrementalADMM(MethodKernel):
                 np.asarray(sched["mu"], dtype=np.int32),
             ),
             steps=steps,
-            statics=self._statics(run, problem, iters, sched),
+            statics=statics,
             max_statics=dict(MU=int(sched["mu"])),
             comm=np.cumsum(np.full(iters, self._comm_per_iter(run, problem))),
             sim_time=sim_time,
         )
+
+    def max_statics_bound(
+        self, problem: LeastSquaresProblem, run: ADMMRun, iters: int
+    ) -> dict:
+        # Exact: make_schedule's mu IS M_bar // K (no sampling involved).
+        return dict(MU=run.cfg.M_bar // run.cfg.K)
 
     def _statics(self, run: ADMMRun, problem, iters, sched) -> dict:
         return dict(
@@ -185,6 +219,7 @@ class IncrementalADMM(MethodKernel):
             T_flat=T.reshape(R, N * b, d),
             last_row=N * b - 1,
             runs=torch.arange(R, device=dev),
+            rows=rows,
             # (K, MU) row offsets of every partition's sub-batch in an
             # agent's block, and the (R, 1, MU, 1) masked 1/mu weights.
             base=part[:, None] * statics["P"] + rows[None, :],
@@ -202,7 +237,17 @@ class IncrementalADMM(MethodKernel):
         return aux
 
     def init(self, aux, statics):
-        return self.xyz_state(aux)
+        state = self.xyz_state(aux)
+        if statics.get("ASYNC"):
+            # Ring of in-flight token increments: slot s of a run holds
+            # the sum of increments landing at the end of its next
+            # iteration k with k % D == s.
+            R, N, p, d = aux["shape"]
+            state["pend"] = torch.zeros(
+                (R, statics["D"], p, d), dtype=aux["dtype"],
+                device=aux["x_star"].device,
+            )
+        return state
 
     def step(self, state, inp, aux, statics):
         """One iteration of every run. Writes the active agents' rows of
@@ -245,7 +290,16 @@ class IncrementalADMM(MethodKernel):
             ).reshape(xi.shape)
 
         x_new = self._perturb_x(x_new, inp, aux, statics)
+        if statics.get("ASYNC"):
+            # Skipped activation (crashed agent / undecodable pattern):
+            # act = 0 freezes x and y, making dz an exact zero below.
+            # where-gating (not act-scaling) keeps the act = 1 path
+            # bitwise that of the ungated computation.
+            live = inp[-1][:, None, None] > 0
+            x_new = torch.where(live, x_new, xi)
         y_new = yi + rho3 * gk[:, None, None] * (z - x_new)  # eq. (5b)
+        if statics.get("ASYNC"):
+            y_new = torch.where(live, y_new, yi)
         dz = ((x_new - xi) - (y_new - yi) / rho3) / N  # eq. (4c) increment
         x[runs, i] = x_new
         y[runs, i] = y_new
@@ -256,7 +310,11 @@ class IncrementalADMM(MethodKernel):
         """Hook: the online controller resolves arm-stacked step inputs.
 
         Runs before anything else in :meth:`step`; identity for the
-        non-adaptive family (the controller is ROADMAP item 12)."""
+        non-adaptive family, so the static paths keep their exact
+        arithmetic. `repro_torch.control.kernel` overrides it to pull a
+        bandit arm per run from carry state, feed back its reward, and
+        return a standard-layout pseudo-``inp`` of the pulled arm's
+        schedule row."""
         return state, inp, aux
 
     def _perturb_x(self, x_new, inp, aux, statics):
@@ -273,13 +331,34 @@ class IncrementalADMM(MethodKernel):
         return {}, dz
 
     def _token_update(self, state, dz, inp, aux, statics):
-        """Apply the token increment (synchronous landing; the async pend
-        ring is ROADMAP item 11)."""
+        """Apply the token increment: directly (sync) or through the pend
+        ring with bounded staleness (async)."""
         upd, c = self._token_increment(state, dz, inp, aux, statics)
-        return dict(state, **upd, z=state["z"] + c)
+        if not statics.get("ASYNC"):
+            return dict(state, **upd, z=state["z"] + c)
+        wslot, rslot = inp[-3], inp[-2]
+        live = inp[-1][:, None, None] > 0
+        # Dead activations transmit nothing and leave hook state alone.
+        upd = {k: torch.where(live, v, state[k]) for k, v in upd.items()}
+        pend, runs = state["pend"], aux["runs"]
+        # Each run adds at its own write slot, in place (the ring is the
+        # loop's own carry).
+        pend[runs, wslot] = pend[runs, wslot] + torch.where(
+            live, c, torch.zeros_like(c)
+        )
+        # Land every increment maturing at this iteration's boundary (the
+        # read slot includes this step's own write when delta = 0 — the
+        # synchronous landing), then clear the slot.
+        z = state["z"] + pend[runs, rslot]
+        pend[runs, rslot] = 0.0
+        return dict(state, **upd, z=z, pend=pend)
 
     def final(self, state, aux, statics):
-        return state["x"], state["z"]
+        z = state["z"]
+        if statics.get("ASYNC"):
+            # Flush in-flight increments: the run ends, updates land.
+            z = z + state["pend"].sum(dim=1)
+        return state["x"], z
 
 
 ADMM_KERNEL = register(IncrementalADMM(), "sI-ADMM", "csI-ADMM", "I-ADMM")

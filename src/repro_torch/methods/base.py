@@ -110,6 +110,8 @@ class MethodKernel:
       that must agree within one batch; equal keys batch into one run of
       the driver.
     - ``prepare(problem, net, cfg, iters) -> Prepared``: host-side numpy.
+    - ``max_statics_bound(problem, cfg, iters)``: an exact bound on
+      ``Prepared.max_statics`` without preparing (default ``{}``).
     - ``setup(consts, statics) -> aux``: once per batch — derived constants
       (Gram matrices, flat views, solve operators), every tensor with a
       leading runs axis R.
@@ -139,6 +141,22 @@ class MethodKernel:
         iters: int,
     ) -> Prepared:
         raise NotImplementedError
+
+    def max_statics_bound(
+        self, problem: LeastSquaresProblem, cfg, iters: int
+    ) -> Dict[str, int]:
+        """Exact bound on :attr:`Prepared.max_statics` WITHOUT preparing.
+
+        The streaming sharded path prepares runs lazily per memory chunk,
+        so the statics every chunk shares must be known up front from
+        (problem, cfg) alone — ``prepare()`` would cost the very
+        O(R x iters) host memory the path exists to avoid. Kernels whose
+        ``prepare`` emits ``max_statics`` must override this with a value
+        >= every run's prepared value (equal keys); the driver checks each
+        chunk against it. Kernels with empty ``max_statics`` inherit this
+        default.
+        """
+        return {}
 
     def setup(self, consts, statics):
         return consts

@@ -47,6 +47,8 @@ METHOD_KW = {
     "pI-ADMM": dict(sigma=0.05, S=1, scheme="cyclic"),
     "cq-sI-ADMM": dict(compressor="topk", frac=0.25),
     "cq-sI-ADMM-quant": dict(method="cq-sI-ADMM", compressor="quant", bits=4),
+    "a-csI-ADMM": dict(arms=(("cyclic", 1, None), ("cyclic", 2, None),
+                             ("approx", 1, 3e-4))),
 }
 # Families the batch tests stack: each tuple batches into one group.
 BATCH_FAMILIES = (
@@ -90,15 +92,15 @@ def _assert_traces_close(got, want, **tol):
 def test_registry_holds_the_ported_family():
     assert sorted(tm.KERNELS) == sorted(
         ["sI-ADMM", "csI-ADMM", "I-ADMM", "W-ADMM", "D-ADMM", "DGD",
-         "EXTRA", "pI-ADMM", "cq-sI-ADMM"]
+         "EXTRA", "pI-ADMM", "cq-sI-ADMM", "a-csI-ADMM"]
     )
     # sI/csI/I-ADMM are one instance; every other name is its own kernel.
     admm = {tm.get_kernel(m) for m in ("sI-ADMM", "csI-ADMM", "I-ADMM")}
     assert len(admm) == 1
-    assert len({id(k) for k in tm.KERNELS.values()}) == 7
-    assert set(tm.KERNELS) == set(rm.KERNELS) - {"a-csI-ADMM"}
+    assert len({id(k) for k in tm.KERNELS.values()}) == 8
+    assert set(tm.KERNELS) == set(rm.KERNELS)
     with pytest.raises(KeyError, match="unknown method"):
-        tm.get_kernel("a-csI-ADMM")
+        tm.get_kernel("b-csI-ADMM")
 
 
 @pytest.mark.parametrize("method", sorted(METHOD_KW))
@@ -267,14 +269,27 @@ ASYNC_TIMINGS = (dict(tau_max=2e-3), dict(churn_rate=20.0, mttr=0.05))
     for m in ("csI-ADMM", "D-ADMM", "DGD", "EXTRA", "pI-ADMM", "cq-sI-ADMM")
     for j, t in enumerate(ASYNC_TIMINGS)
 ])
-def test_async_timing_raises(method, timing):
-    """Async mode (the ADMM pend ring, the gossip history rings) is
-    ROADMAP item 11: every ported method but W-ADMM raises naming it."""
-    _, tc = _cases(method)
+def test_async_matches_reference(method, timing):
+    """Async mode (the ADMM pend ring, the gossip history rings): the
+    port's host side — signature, statics, slots, activity, clock — is
+    the reference's bit for bit, and its traces are within rtol 1e-9."""
+    rc, tc = _cases(method)
+    rk, rp, rn, rcfg = _materialize(rc, "repro")
     tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
-    run = dataclasses.replace(tcfg, timing=TimingModel(**timing))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        tm.run_serial(tk, tp, tn, run, ITERS, **CPU64)
+    rrun = dataclasses.replace(rcfg, timing=type(rcfg.timing)(**timing))
+    trun = dataclasses.replace(tcfg, timing=TimingModel(**timing))
+    sig = tk.static_signature(tp, trun, ITERS)
+    assert sig == rk.static_signature(rp, rrun, ITERS)
+    assert ("async", trun.timing.staleness_cap) in zip(sig, sig[1:])
+    a, b = rk.prepare(rp, rn, rrun, ITERS), tk.prepare(tp, tn, trun, ITERS)
+    assert a.statics == b.statics and b.statics["ASYNC"]
+    for x, y in zip(a.steps, b.steps, strict=True):
+        assert np.asarray(x).dtype == y.dtype and np.array_equal(x, y)
+    assert np.array_equal(a.sim_time, b.sim_time)
+    _assert_traces_close(
+        tm.run_serial(tk, tp, tn, trun, ITERS, **CPU64),
+        rm.run_serial(rk, rp, rn, rrun, ITERS),
+    )
 
 
 @pytest.mark.parametrize("timing", ASYNC_TIMINGS)
@@ -295,14 +310,11 @@ def test_walkman_async_raises_the_reference_error(timing):
 def test_unported_paths_raise():
     _, tc = _cases("sI-ADMM")
     tk, tp, tn, tcfg = _materialize(tc, "repro_torch")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.run_serial(tk, tp, tn, tcfg, ITERS, reductions=object(), **CPU64)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tm.run_batch(tk, [tp], [tn], [tcfg], ITERS, reductions=object(), **CPU64)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tm.run_sharded(tk, [tp], [tn], [tcfg], ITERS)
     with pytest.raises(ValueError, match="run dtype"):
         tm.run_serial(tk, tp, tn, tcfg, ITERS, device="cpu", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="run dtype"):
+        tm.run_sharded(tk, [tp], [tn], [tcfg], ITERS, devices=["cpu"],
+                       dtype=torch.bfloat16)
     exact = dataclasses.replace(
         tcfg, cfg=dataclasses.replace(tcfg.cfg, exact_x=True)
     )
