@@ -4,7 +4,9 @@
 ``train_step`` is the reference's: the loss's gradient, clipping at a
 global norm of 1.0, one Adam step (float32 moments), and the metrics
 ``loss``, ``nll`` and ``grad_norm``. The parameters live in the model and
-are updated in place; the runtime's state holds the optimizer's.
+are updated in place, as are the gradients' clipping and the optimizer's
+moments in the runtime's state (``clip_by_global_norm_``,
+``adam_update_``: the reference's arithmetic, leaf by leaf).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.optim import adam_init, adam_update, clip_by_global_norm
+from repro_torch.optim import adam_init, adam_update_, clip_by_global_norm_
 
 __all__ = ["PlainRuntime"]
 
@@ -43,13 +45,12 @@ class PlainRuntime:
             k: torch.zeros_like(p) if p.grad is None else p.grad
             for k, p in params.items()
         }
-        grads, gn = clip_by_global_norm(grads, 1.0)
-        new, opt = adam_update(params, grads, state["opt"], self.lr)
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new[k])
-                p.grad = None
-        return {"opt": opt}, {
+        gn = clip_by_global_norm_(grads, 1.0)
+        adam_update_(params, grads, state["opt"], self.lr)
+        del grads
+        for p in params.values():
+            p.grad = None
+        return state, {
             "loss": loss.detach(),
             "nll": metrics["nll"].detach(),
             "grad_norm": gn,

@@ -5,9 +5,11 @@ PyTorch versions.
       (+ eq. 5a x-update): the csI-ADMM agent-side hot spot (memory-bound
       reduce). ``csrc/coded_combine.cu``.
   flash_attention (K3) — causal / sliding-window / GQA online-softmax
-      attention of every transformer prefill. ``csrc/flash_attention.cu``.
+      attention of every transformer and RecurrentGemma attention layer,
+      with a backward kernel for training. ``csrc/flash_attention.cu``.
   rglru_scan (K5) — the RG-LRU linear recurrence of every RecurrentGemma
-      prefill. ``csrc/rglru_scan.cu``.
+      recurrent layer, with a backward kernel (the reverse scan).
+      ``csrc/rglru_scan.cu``.
   ssd_scan (K4) — the chunked Mamba-2 SSD scan of the mamba2 training
       forward, with a plain-PyTorch gradient. ``csrc/ssd_scan.cu``.
 

@@ -116,7 +116,9 @@ static_assert(kBQ == kBK, "load_tile copies kBQ rows for both tiles");
 enum DType : int { kF32 = 0, kBF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -145,9 +147,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, HD <= 128 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int B,
-                       int H, int KV, int64_t Sq, int64_t Skv, int causal,
-                       int64_t window, int64_t q_offset, float sm_scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int B, int H, int KV,
+                       int64_t Sq, int64_t Skv, int causal, int64_t window,
+                       int64_t q_offset, float sm_scale) {
   constexpr int kLd = HD + kPad;
   constexpr int kNC = HD / 64;  // float4 output column groups per thread
   extern __shared__ float4 smem4[];
@@ -300,6 +303,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row = q_row0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // The row's log-sum-exp of the scaled scores (q was pre-scaled), for
+    // the backward pass; the 16 threads of the row hold the same m and l.
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] = m[i] + logf(l[i]);
     T* o = out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < kNC; ++c)
@@ -360,8 +367,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ out, int B, int H,
-                          int KV, int64_t Sq, int64_t Skv, int causal,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int B, int H, int KV,
+                          int64_t Sq, int64_t Skv, int causal,
                           int64_t window, int64_t q_offset, int n_qtiles,
                           float scale_log2) {
   using C = Cfg<HD>;
@@ -607,8 +615,13 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t row = q_row0 + r0 + 8 * r;
-    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float l_row = quad_sum(l[r]);
+    const float inv = 1.f / fmaxf(l_row, 1e-30f);
     if (row >= Sq) continue;
+    // The row's log-sum-exp in natural units: m is the scaled (log2) max.
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + row] =
+          (m[r] + log2f(l_row)) * 0.6931471805599453f;
     __nv_bfloat16* o_row =
         out + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD;
 #pragma unroll
@@ -668,13 +681,393 @@ bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads,
 
 }  // namespace tc
 
+
+// ---- backward: the CUDA-core body -----------------------------------------
+//
+// The gradient of the attention above for query positions from 0 (training
+// never offsets them), from the forward's output O and its rows'
+// log-sum-exp L (the forward writes L when asked):
+//   D_i  = rowsum(dO_i o O_i)                      (prep kernel)
+//   P    = exp(S - L) inside the band, 0 outside, S = Q K^T / sqrt(hd)
+//   dV  += P^T dO,   dS = P o (dO V^T - D),   dK += dS^T Q / sqrt(hd)
+//   dQ  += dS K / sqrt(hd)                         (main kernel)
+// then dQ, dK, dV cast to the input type (finish kernel). Everything is
+// float32 on the CUDA cores, for both input types: a simple body first;
+// the tensor cores are later work (ROADMAP Queue 2).
+//
+// Bound on this card: operations, 10 hd flops per live (query, key) pair
+// (five products; 2.5 times the forward's): at the qwen3-0.6b training
+// step (B 4, S 2048, H 16, hd 128, causal) about 172 GFLOP, 0.17 ms at the
+// bf16 tensor-core peak, 2.6 ms at the float32 CUDA-core peak.
+//
+// Design:
+// - one block of 256 threads per (key tile of kBK keys, kv head g, batch
+//   b, head split): K and V of the tile stay in shared memory (float32)
+//   while the block walks the query tiles of kBQ rows that meet the
+//   tile's causal/window band, for each query head that reads g (all
+//   q_per_kv of them, or 1/split of them: MQA leaves one kv head, and
+//   recurrentgemma's B 1 x 128 key tiles would not fill 132 SMs, so the
+//   wrapper splits the heads until the grid does);
+// - dK and dV accumulate in registers over every query row the block
+//   visits and are written once, as float32 partials per head split,
+//   which the finish kernel sums;
+// - dQ of a (query tile, key tile) pair is added by float32 atomics into
+//   a zeroed float32 buffer: one pass over the band. The other choice, a
+//   second pass per query tile, would recompute S, P and dP (three of the
+//   five products) to save the atomics, which cost 4 bytes a dQ element
+//   per visiting key tile in L2 and leave dQ's summation order to the
+//   hardware (run-to-run differences at float32 round-off);
+// - a thread (tm, tn) = (tid / 16, tid % 16) owns query rows tm + 16 i and
+//   key columns tn + 16 j of S, dP; keys tm + 16 i and columns tn + 16 j of
+//   dK, dV; rows tm + 16 i and columns tn + 16 j of dQ. Shared rows are
+//   padded to an odd length, so the column-strided reads hit 16 banks;
+// - tiles: 64 keys x 64 query rows for hd <= 128, 32 x 32 at hd 256 (K, V,
+//   Q, dO, P, dS and the rows' L and D in float32: 166 KB at hd 128,
+//   140 KB at hd 256; one block an SM);
+// - the key tiles nearest the start (the longest bands under causal
+//   masking) launch first.
+
+namespace bwd {
+
+constexpr int kThreads = 256;
+
+template <int HD>
+struct Cfg {
+  static constexpr int kBQ = HD <= 128 ? 64 : 32;  // query rows a step
+  static constexpr int kBK = HD <= 128 ? 64 : 32;  // keys a block
+  static constexpr int kLd = HD + 1;               // odd row pitch (floats)
+  static constexpr int kLdp = kBK + 1;
+  static constexpr int kSM = kBQ / 16, kSN = kBK / 16;  // S, dP per thread
+  static constexpr int kKM = kBK / 16, kKN = HD / 16;   // dK, dV per thread
+  static constexpr int kQM = kBQ / 16, kQN = HD / 16;   // dQ per thread
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kBK * kLd + 2 * kBQ * kLd + 2 * kBQ * kLdp + 2 * kBQ);
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+// Rows [row0, row0 + ROWS) of a slab whose rows lie `stride` elements
+// apart, as float32 into a tile of pitch `ld`; rows past `n_rows` are 0.
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* __restrict__ src,
+                                          int64_t row0, int64_t n_rows,
+                                          int64_t stride) {
+  for (int e = threadIdx.x; e < ROWS * HD; e += kThreads) {
+    const int r = e / HD, d = e % HD;
+    const int64_t row = row0 + r;
+    dst[r * ld + d] = row < n_rows ? to_f32(src[row * stride + d]) : 0.f;
+  }
+}
+
+// D (B, H, Sq) = rowsum(dO o O) in float32, and dq_acc zeroed; one warp a
+// (b, i, h) row, rows in memory order.
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_prep_kernel(const T* __restrict__ out,
+                                const T* __restrict__ dout,
+                                float* __restrict__ delta,
+                                float* __restrict__ dq_acc, int B, int H,
+                                int64_t Sq) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<int64_t>(B) * Sq * H) return;
+  float acc = 0.f;
+  for (int c = lane; c < HD; c += 32) {
+    acc = fmaf(to_f32(out[row * HD + c]), to_f32(dout[row * HD + c]), acc);
+    dq_acc[row * HD + c] = 0.f;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(row % H);
+    const int64_t bi = row / H;
+    delta[(bi / Sq * H + h) * Sq + bi % Sq] = acc;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc,
+                           float* __restrict__ dk_part,
+                           float* __restrict__ dv_part, int B, int H, int KV,
+                           int64_t Sq, int64_t Skv, int causal,
+                           int64_t window, int split, float scale) {
+  using C = Cfg<HD>;
+  constexpr int kBQ = C::kBQ, kBK = C::kBK, kLd = C::kLd, kLdp = C::kLdp;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kBK * kLd;
+  float* Qs = Vs + kBK * kLd;
+  float* dOs = Qs + kBQ * kLd;
+  float* Ps = dOs + kBQ * kLd;
+  float* dSs = Ps + kBQ * kLdp;
+  float* Ls = dSs + kBQ * kLdp;
+  float* Ds = Ls + kBQ;
+
+  const int tid = threadIdx.x, tm = tid / 16, tn = tid % 16;
+  // Block -> (key tile, head split, b, g), key tiles slowest.
+  const int per_tile = split * B * KV;
+  const int64_t kt = blockIdx.x / per_tile;
+  int rem = static_cast<int>(blockIdx.x % per_tile);
+  const int g = rem % KV;
+  rem /= KV;
+  const int b = rem % B;
+  const int hs = rem / B;
+  const int qpk = H / KV, hper = qpk / split;
+  const int64_t k0 = kt * kBK;
+  const int64_t k_last = (k0 + kBK < Skv ? k0 + kBK : Skv) - 1;
+
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t kv_off = (static_cast<int64_t>(b) * Skv * KV + g) * HD;
+  load_rows<T, HD, kBK>(Ks, kLd, k + kv_off, k0, Skv, kv_stride);
+  load_rows<T, HD, kBK>(Vs, kLd, v + kv_off, k0, Skv, kv_stride);
+
+  // Query rows that meet the band of this key tile.
+  int64_t q_min = 0, q_max = Sq - 1;
+  if (causal) q_min = k0;
+  if (window > 0 && k_last + window - 1 < q_max) q_max = k_last + window - 1;
+
+  float dk[C::kKM][C::kKN], dv[C::kKM][C::kKN];
+#pragma unroll
+  for (int i = 0; i < C::kKM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kKN; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  for (int hh = 0; hh < hper; ++hh) {
+    const int h = g * qpk + hs * hper + hh;
+    const int64_t q_off = (static_cast<int64_t>(b) * Sq * H + h) * HD;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * Sq;
+    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * Sq;
+    for (int64_t q0 = (q_min / kBQ) * kBQ; q0 <= q_max; q0 += kBQ) {
+      __syncthreads();  // the last step's readers are done with the tiles
+      load_rows<T, HD, kBQ>(Qs, kLd, q + q_off, q0, Sq, q_stride);
+      load_rows<T, HD, kBQ>(dOs, kLd, dout + q_off, q0, Sq, q_stride);
+      for (int r = tid; r < kBQ; r += kThreads) {
+        const bool in = q0 + r < Sq;
+        Ls[r] = in ? lse_h[q0 + r] : 0.f;
+        Ds[r] = in ? delta_h[q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T: rows tm + 16 i, keys tn + 16 j.
+      float sc[C::kSM][C::kSN], dp[C::kSM][C::kSN];
+#pragma unroll
+      for (int i = 0; i < C::kSM; ++i)
+#pragma unroll
+        for (int j = 0; j < C::kSN; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        float qa[C::kSM], oa[C::kSM], kb[C::kSN], vb[C::kSN];
+#pragma unroll
+        for (int i = 0; i < C::kSM; ++i) {
+          qa[i] = Qs[(tm + 16 * i) * kLd + d];
+          oa[i] = dOs[(tm + 16 * i) * kLd + d];
+        }
+#pragma unroll
+        for (int j = 0; j < C::kSN; ++j) {
+          kb[j] = Ks[(tn + 16 * j) * kLd + d];
+          vb[j] = Vs[(tn + 16 * j) * kLd + d];
+        }
+#pragma unroll
+        for (int i = 0; i < C::kSM; ++i)
+#pragma unroll
+          for (int j = 0; j < C::kSN; ++j) {
+            sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+            dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
+          }
+      }
+      // P = exp(S scale - L) on the band, dS = P (dP - D).
+#pragma unroll
+      for (int i = 0; i < C::kSM; ++i) {
+        const int r = tm + 16 * i;
+        const int64_t row = q0 + r;
+#pragma unroll
+        for (int j = 0; j < C::kSN; ++j) {
+          const int c = tn + 16 * j;
+          const int64_t key = k0 + c;
+          bool live = row < Sq && key < Skv;
+          if (causal) live = live && key <= row;
+          if (window > 0) live = live && key > row - window;
+          const float p = live ? expf(fmaf(sc[i][j], scale, -Ls[r])) : 0.f;
+          Ps[r * kLdp + c] = p;
+          dSs[r * kLdp + c] = p * (dp[i][j] - Ds[r]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: keys tm + 16 i, columns tn + 16 j.
+#pragma unroll 2
+      for (int r = 0; r < kBQ; ++r) {
+        float pa[C::kKM], sa[C::kKM], ob[C::kKN], qb[C::kKN];
+#pragma unroll
+        for (int i = 0; i < C::kKM; ++i) {
+          pa[i] = Ps[r * kLdp + tm + 16 * i];
+          sa[i] = dSs[r * kLdp + tm + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < C::kKN; ++j) {
+          ob[j] = dOs[r * kLd + tn + 16 * j];
+          qb[j] = Qs[r * kLd + tn + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < C::kKM; ++i)
+#pragma unroll
+          for (int j = 0; j < C::kKN; ++j) {
+            dv[i][j] = fmaf(pa[i], ob[j], dv[i][j]);
+            dk[i][j] = fmaf(sa[i], qb[j], dk[i][j]);
+          }
+      }
+
+      // dQ += scale dS K: rows tm + 16 i, columns tn + 16 j, by atomics.
+      float dq[C::kQM][C::kQN];
+#pragma unroll
+      for (int i = 0; i < C::kQM; ++i)
+#pragma unroll
+        for (int j = 0; j < C::kQN; ++j) dq[i][j] = 0.f;
+#pragma unroll 2
+      for (int c = 0; c < kBK; ++c) {
+        float sa[C::kQM], kb[C::kQN];
+#pragma unroll
+        for (int i = 0; i < C::kQM; ++i) sa[i] = dSs[(tm + 16 * i) * kLdp + c];
+#pragma unroll
+        for (int j = 0; j < C::kQN; ++j) kb[j] = Ks[c * kLd + tn + 16 * j];
+#pragma unroll
+        for (int i = 0; i < C::kQM; ++i)
+#pragma unroll
+          for (int j = 0; j < C::kQN; ++j) dq[i][j] = fmaf(sa[i], kb[j], dq[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < C::kQM; ++i) {
+        const int64_t row = q0 + tm + 16 * i;
+        if (row >= Sq) continue;
+        float* dst = dq_acc + ((static_cast<int64_t>(b) * Sq + row) * H + h) * HD;
+#pragma unroll
+        for (int j = 0; j < C::kQN; ++j) atomicAdd(dst + tn + 16 * j, scale * dq[i][j]);
+      }
+    }
+  }
+
+  // This head split's dK (scaled) and dV, float32, laid out (split, B,
+  // Skv, KV, hd).
+#pragma unroll
+  for (int i = 0; i < C::kKM; ++i) {
+    const int64_t key = k0 + tm + 16 * i;
+    if (key >= Skv) continue;
+    const int64_t base =
+        (((static_cast<int64_t>(hs) * B + b) * Skv + key) * KV + g) * HD;
+#pragma unroll
+    for (int j = 0; j < C::kKN; ++j) {
+      dk_part[base + tn + 16 * j] = scale * dk[i][j];
+      dv_part[base + tn + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+// dq = dq_acc and dk, dv = the sum of the split partials, in T.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_finish_kernel(const float* __restrict__ dq_acc,
+                                  const float* __restrict__ dk_part,
+                                  const float* __restrict__ dv_part,
+                                  T* __restrict__ dq, T* __restrict__ dk,
+                                  T* __restrict__ dv, int64_t n_q,
+                                  int64_t n_kv, int split) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_q + n_kv; i += stride) {
+    if (i < n_q) {
+      store(dq + i, dq_acc[i]);
+    } else {
+      const int64_t j = i - n_q;
+      float sk = 0.f, sv = 0.f;
+      for (int s = 0; s < split; ++s) {
+        sk += dk_part[s * n_kv + j];
+        sv += dv_part[s * n_kv + j];
+      }
+      store(dk + j, sk);
+      store(dv + j, sv);
+    }
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+           void* delta, void* dq_acc, void* dk_part, void* dv_part, int B,
+           int H, int KV, int64_t Sq, int64_t Skv, int causal, int64_t window,
+           int split, void* stream) {
+  using C = Cfg<HD>;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  const int64_t n_ktiles = (Skv + C::kBK - 1) / C::kBK;
+  const int64_t blocks = n_ktiles * split * B * KV;
+  if ((rows + 7) / 8 > 2147483647 || blocks > 2147483647) return cudaErrorInvalidValue;
+  flash_attention_bwd_prep_kernel<T, HD>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+          static_cast<const T*>(out), static_cast<const T*>(dout),
+          static_cast<float*>(delta), static_cast<float*>(dq_acc), B, H, Sq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_attention_bwd_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_attention_bwd_kernel<T, HD>
+      <<<static_cast<unsigned>(blocks), kThreads, C::kSmem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dq_acc), static_cast<float*>(dk_part),
+          static_cast<float*>(dv_part), B, H, KV, Sq, Skv, causal, window,
+          split, 1.f / sqrtf(static_cast<float>(HD)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_q = rows * HD;
+  const int64_t n_kv = static_cast<int64_t>(B) * Skv * KV * HD;
+  const int64_t want = (n_q + n_kv + 255) / 256;
+  flash_attention_bwd_finish_kernel<T>
+      <<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0, s>>>(
+          static_cast<const float*>(dq_acc), static_cast<const float*>(dk_part),
+          static_cast<const float*>(dv_part), static_cast<T*>(dq),
+          static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 const void* out, const void* dout, const void* lse, void* dq,
+                 void* dk, void* dv, void* delta, void* dq_acc, void* dk_part,
+                 void* dv_part, int B, int H, int KV, int64_t Sq, int64_t Skv,
+                 int causal, int64_t window, int split, void* stream) {
+  switch (dtype) {
+    case kF32:
+      return launch<float, HD>(q, k, v, out, dout, lse, dq, dk, dv, delta,
+                               dq_acc, dk_part, dv_part, B, H, KV, Sq, Skv,
+                               causal, window, split, stream);
+    case kBF16:
+      return launch<__nv_bfloat16, HD>(q, k, v, out, dout, lse, dq, dk, dv,
+                                       delta, dq_acc, dk_part, dv_part, B, H,
+                                       KV, Sq, Skv, causal, window, split,
+                                       stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 // Error codes of this library beyond cudaError_t's range.
 constexpr int kErrTensorMap = 100000;
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int KV, int64_t Sq, int64_t Skv, int causal,
-              int64_t window, int64_t q_offset, void* stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int H, int KV, int64_t Sq, int64_t Skv,
+              int causal, int64_t window, int64_t q_offset, void* stream) {
   using C = tc::Cfg<HD>;
   CUtensorMap tq, tk, tv;
   if (!tc::encode_map(&tq, q, HD, H, Sq, B, tc::kBQ) ||
@@ -693,17 +1086,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   tc::flash_attention_tc_kernel<HD><<<static_cast<unsigned>(n_ctas),
                                       tc::kThreads, C::kSmem,
                                       static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, H, KV, Sq, Skv, causal,
-      window, q_offset, static_cast<int>(n_qtiles), scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, B, H, KV, Sq, Skv,
+      causal, window, q_offset, static_cast<int>(n_qtiles), scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- float32: launch of the CUDA-core body --------------------------------
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int64_t Sq, int64_t Skv, int causal,
-               int64_t window, int64_t q_offset, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int KV, int64_t Sq, int64_t Skv,
+               int causal, int64_t window, int64_t q_offset, void* stream) {
   constexpr size_t kSmem = smem_bytes<HD>();
   // Above 48 KB of dynamic shared memory needs an opt-in (per device, so
   // it is set on every launch rather than once per process).
@@ -719,22 +1112,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<float, HD><<<grid, kThreads, kSmem,
                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), B, H, KV, Sq,
-      Skv, causal, window, q_offset, sm_scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, B, H, KV,
+      Sq, Skv, causal, window, q_offset, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int H, int KV, int64_t Sq, int64_t Skv, int causal,
-           int64_t window, int64_t q_offset, void* stream) {
+           float* lse, int B, int H, int KV, int64_t Sq, int64_t Skv,
+           int causal, int64_t window, int64_t q_offset, void* stream) {
   switch (dtype) {
     case kF32:
-      return launch_f32<HD>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
-                            q_offset, stream);
+      return launch_f32<HD>(q, k, v, out, lse, B, H, KV, Sq, Skv, causal,
+                            window, q_offset, stream);
     case kBF16:
-      return launch_tc<HD>(q, k, v, out, B, H, KV, Sq, Skv, causal, window,
-                           q_offset, stream);
+      return launch_tc<HD>(q, k, v, out, lse, B, H, KV, Sq, Skv, causal,
+                           window, q_offset, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -744,23 +1137,59 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// out (B, Sq, H, hd) in q's dtype. window <= 0 means no window.
+// out (B, Sq, H, hd) in q's dtype; lse (B, H, Sq) float32, the rows'
+// log-sum-exp of the scaled scores, or null (serving) to skip it. window
+// <= 0 means no window.
 int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
-                           const void* v, void* out, int B, int H, int KV,
-                           int64_t Sq, int64_t Skv, int causal,
+                           const void* v, void* out, void* lse, int B, int H,
+                           int KV, int64_t Sq, int64_t Skv, int causal,
                            int64_t window, int64_t q_offset, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1)
     return cudaErrorInvalidValue;
+  float* l = static_cast<float*>(lse);
   switch (hd) {
     case 64:
-      return launch<64>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+      return launch<64>(dtype, q, k, v, out, l, B, H, KV, Sq, Skv, causal,
                         window, q_offset, stream);
     case 128:
-      return launch<128>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+      return launch<128>(dtype, q, k, v, out, l, B, H, KV, Sq, Skv, causal,
                          window, q_offset, stream);
     case 256:
-      return launch<256>(dtype, q, k, v, out, B, H, KV, Sq, Skv, causal,
+      return launch<256>(dtype, q, k, v, out, l, B, H, KV, Sq, Skv, causal,
                          window, q_offset, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Gradient of the attention (query positions from 0): dq (B, Sq, H, hd),
+// dk, dv (B, Skv, KV, hd) in the input dtype, from q, k, v, the forward's
+// out and lse and dout. Scratch (float32, any contents): delta (B, H, Sq),
+// dq_acc (B, Sq, H, hd), dk_part and dv_part (split, B, Skv, KV, hd);
+// split divides H / KV.
+int flash_attention_bwd_launch(int dtype, int hd, const void* q,
+                               const void* k, const void* v, const void* out,
+                               const void* dout, const void* lse, void* dq,
+                               void* dk, void* dv, void* delta, void* dq_acc,
+                               void* dk_part, void* dv_part, int B, int H,
+                               int KV, int64_t Sq, int64_t Skv, int causal,
+                               int64_t window, int split, void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
+      split < 1 || (H / KV) % split != 0)
+    return cudaErrorInvalidValue;
+  switch (hd) {
+    case 64:
+      return bwd::launch_dtype<64>(dtype, q, k, v, out, dout, lse, dq, dk, dv,
+                                   delta, dq_acc, dk_part, dv_part, B, H, KV,
+                                   Sq, Skv, causal, window, split, stream);
+    case 128:
+      return bwd::launch_dtype<128>(dtype, q, k, v, out, dout, lse, dq, dk,
+                                    dv, delta, dq_acc, dk_part, dv_part, B, H,
+                                    KV, Sq, Skv, causal, window, split, stream);
+    case 256:
+      return bwd::launch_dtype<256>(dtype, q, k, v, out, dout, lse, dq, dk,
+                                    dv, delta, dq_acc, dk_part, dv_part, B, H,
+                                    KV, Sq, Skv, causal, window, split, stream);
     default:
       return cudaErrorInvalidValue;
   }

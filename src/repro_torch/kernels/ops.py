@@ -3,9 +3,12 @@
 Counterpart of `repro.kernels.ops`. A CUDA tensor goes to the
 hand-written kernel or the call raises; a CPU tensor goes to the plain
 PyTorch version (`repro_torch.kernels.ref`); any other device raises.
-There is no fallback from one to the other. ``ssd_scan`` is also
-differentiable (`_SSDScan`); the other kernels have no backward yet and
-refuse inputs that need a gradient.
+There is no fallback from one to the other. ``flash_attention``,
+``rglru_scan`` and ``ssd_scan`` are differentiable on the card through
+autograd Functions (`_FlashAttention` and `_RGLRUScan`, whose backward is
+a hand-written kernel; `_SSDScan`, whose backward is plain PyTorch); on
+the CPU the plain versions run under ordinary autograd. The coded-combine
+kernels have no backward (nothing differentiates them).
 
 Unlike the reference, nothing is padded or re-tiled: the TPU kernels need
 128-lane tiles and block sizes that divide the sequence (hence
@@ -22,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from .coded_combine import coded_admm_update_kernel, coded_combine_kernel
-from .flash_attention import flash_attention_kernel
+from .flash_attention import flash_attention_bwd_kernel, flash_attention_kernel
 from .ref import (
     coded_admm_update_ref,
     coded_combine_ref,
@@ -31,7 +34,7 @@ from .ref import (
     rglru_scan_ref,
     ssd_scan_ref,
 )
-from .rglru_scan import rglru_scan_kernel
+from .rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
 from .ssd_scan import ssd_scan_kernel
 
 __all__ = [
@@ -104,6 +107,38 @@ def coded_admm_update(
     )
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 with a gradient, on CUDA tensors: the forward kernel (which also
+    writes each row's log-sum-exp) and the backward kernel, from the saved
+    q, k, v, output and log-sum-exp. Query positions start at 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_kernel(
+            q, k, v, causal=causal, window=window, return_lse=True
+        )
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, dout.contiguous(), lse, causal=ctx.causal, window=ctx.window
+        )
+        need = ctx.needs_input_grad
+        return (dq if need[0] else None, dk if need[1] else None,
+                dv if need[2] else None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, hd) — model layout
     k: torch.Tensor,  # (B, Skv, KV, hd)
@@ -116,17 +151,49 @@ def flash_attention(
     """Flash attention in the model's (B, S, H, hd) layout, GQA-aware
     (query head h reads kv head h * KV // H). Query positions are
     ``arange(Sq) + q_offset``; every query row must keep at least one live
-    key (ROADMAP Queue 3). Output in q's dtype."""
+    key (ROADMAP Queue 3). Output in q's dtype. Differentiable: on CUDA
+    through the backward kernel (query positions from 0 only), on the CPU
+    through the plain version."""
     if not _on_cuda(q, "flash-attention"):
         out = flash_attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window, q_offset=q_offset,
         )
         return out.transpose(1, 2)
+    if _needs_grad(q, k, v):
+        if q_offset:
+            raise ValueError(
+                "the K3 backward kernel takes query positions from 0 "
+                f"(training); got q_offset={q_offset} on inputs that need a gradient"
+            )
+        return _FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_kernel(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal, window=window, q_offset=q_offset,
     )
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """K5 with a gradient, on CUDA tensors: the forward kernel, and the
+    reverse-scan backward kernel from the saved a, h and h0. A gradient is
+    computed only for the inputs that need one (h0's, the backward's dh0,
+    only when h0 needs it); b's gradient is the scan's g, which the kernel
+    writes anyway."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = rglru_scan_kernel(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        da, db, dh0 = rglru_scan_bwd_kernel(
+            a, h, h0, dh.contiguous(), dh_last.contiguous(), want_dh0=need[2]
+        )
+        return (da if need[0] else None, db if need[1] else None, dh0)
 
 
 def rglru_scan(
@@ -135,12 +202,16 @@ def rglru_scan(
     h0: Optional[torch.Tensor] = None,  # (B, W)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Linear recurrence h_t = a_t h_{t-1} + b_t (RG-LRU inner scan) in
-    float32 from h0 (zeros when None). Returns (h (B, S, W), h_last (B, W))."""
+    float32 from h0 (zeros when None). Returns (h (B, S, W), h_last (B, W)).
+    Differentiable: on CUDA through the backward kernel, on the CPU
+    through the plain version."""
     if not _on_cuda(a, "rglru-scan"):
         return rglru_scan_ref(a, b, h0)
     f32 = [t.to(torch.float32).contiguous() for t in (a, b)]
     if h0 is not None:
         h0 = h0.to(torch.float32).contiguous()
+    if _needs_grad(a, b, h0):
+        return _RGLRUScan.apply(*f32, h0)
     return rglru_scan_kernel(*f32, h0)
 
 

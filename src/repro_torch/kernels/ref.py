@@ -8,8 +8,14 @@ Counterparts of `repro.kernels.ref`:
   semantics, including the accumulation dtype ``promote(dtype, float32)``:
   bf16 and f32 accumulate in f32, f64 stays f64.
 - ``flash_attention_ref``: dense attention in the kernel's (B, H, S, hd)
-  layout, GQA by head mapping, float32 scores.
-- ``rglru_scan_ref``: the sequential linear recurrence in float32.
+  layout, GQA by head mapping, scores in ``promote(dtype, float32)``
+  (float32 for bf16 and f32 inputs), optionally with the rows'
+  log-sum-exp; ``flash_attention_bwd_ref`` its gradient from the saved
+  output and log-sum-exp, the formulas of the K3 backward kernel.
+- ``rglru_scan_ref``: the sequential linear recurrence in
+  ``promote(dtype, float32)`` (float32 for the model's float32 gates);
+  ``rglru_scan_bwd_ref`` its gradient, the reverse recurrence of the K5
+  backward kernel.
 - ``ssd_scan_ref``: the sequential Mamba-2 SSD recurrence, in
   ``promote(dtype, float32)`` (the reference computes in float32 and
   raises on float64 ``dt``; float64 here serves the gradient checks).
@@ -17,6 +23,7 @@ Counterparts of `repro.kernels.ref`:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,7 +33,9 @@ __all__ = [
     "coded_combine_ref",
     "coded_admm_update_ref",
     "flash_attention_ref",
+    "flash_attention_bwd_ref",
     "rglru_scan_ref",
+    "rglru_scan_bwd_ref",
     "ssd_scan_ref",
 ]
 
@@ -77,6 +86,23 @@ def coded_admm_update_ref(
     return (num / (r + t)).to(x.dtype)
 
 
+def _band(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int, device):
+    """(Sq, Skv) mask of the live (query, key) pairs."""
+    qpos = torch.arange(Sq, device=device) + q_offset
+    kpos = torch.arange(Skv, device=device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
+    return mask
+
+
+def _expand_heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, KV, S, hd) -> (B, H, S, hd) by the GQA mapping h -> h * KV // H."""
+    return t[:, torch.arange(H, device=t.device) * t.shape[1] // H]
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (B, H, Sq, hd)
     k: torch.Tensor,  # (B, KV, Skv, hd)
@@ -84,32 +110,72 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     q_offset: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Dense attention with GQA head mapping h -> h * KV // H; scores and
-    softmax in float32, masked scores -1e30, output in q's dtype.
+    softmax in ``promote(dtype, float32)``, masked scores -1e30, output in
+    q's dtype. With ``return_lse`` also the log-sum-exp of each row's
+    scaled scores, (B, H, Sq) in the score dtype: what the kernel's
+    forward saves for its backward.
 
     A query row with no live key gives the mean of v here; the kernel
     gives something else there (ROADMAP Queue 3). Callers keep at least
     one live key per row, as causal self-attention does."""
     B, H, Sq, hd = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    kv_idx = torch.arange(H, device=q.device) * KV // H
-    kx = k[:, kv_idx]  # (B, H, Skv, hd)
-    vx = v[:, kv_idx]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) / torch.sqrt(
-        torch.tensor(float(hd))
-    ).item()
-    qpos = torch.arange(Sq, device=q.device) + q_offset
-    kpos = torch.arange(Skv, device=q.device)
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None] > qpos[:, None] - window
+    Skv = k.shape[2]
+    ct = compute_dtype(q.dtype)
+    s = torch.einsum(
+        "bhqd,bhkd->bhqk", q.to(ct), _expand_heads(k, H).to(ct)
+    ) / math.sqrt(hd)
+    mask = _band(Sq, Skv, causal, window, q_offset, q.device)
     s = torch.where(mask[None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vx.float())
-    return o.to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, _expand_heads(v, H).to(ct)).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1)
+    return o
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # (B, H, Sq, hd)
+    k: torch.Tensor,  # (B, KV, Skv, hd)
+    v: torch.Tensor,  # (B, KV, Skv, hd)
+    o: torch.Tensor,  # (B, H, Sq, hd) the forward's output
+    do: torch.Tensor,  # (B, H, Sq, hd) its gradient
+    lse: torch.Tensor,  # (B, H, Sq) the forward's row log-sum-exp
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_attention_ref`` (query positions from 0)
+    from the saved output and log-sum-exp, in ``promote(dtype, float32)``:
+
+      P  = exp(S - lse) inside the band (0 outside), S = Q K^T / sqrt(hd)
+      dV = P^T dO
+      dS = P o (dO V^T - rowsum(dO o O))
+      dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd)
+
+    and each kv head sums dK and dV over the q_per_kv query heads that
+    read it. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    ct = compute_dtype(q.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    qc, doc = q.to(ct), do.to(ct)
+    kx, vx = _expand_heads(k, H).to(ct), _expand_heads(v, H).to(ct)
+    s = torch.einsum("bhqd,bhkd->bhqk", qc, kx) * scale
+    mask = _band(Sq, Skv, causal, window, 0, q.device)
+    p = torch.where(mask[None, None], torch.exp(s - lse.to(ct)[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, doc)
+    dp = torch.einsum("bhqd,bhkd->bhqk", doc, vx)
+    delta = (doc * o.to(ct)).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
+
+    def per_kv(t):  # the query heads of one kv head are consecutive
+        return t.reshape(B, KV, H // KV, Skv, hd).sum(2)
+
+    return dq.to(q.dtype), per_kv(dk).to(k.dtype), per_kv(dv).to(v.dtype)
 
 
 def rglru_scan_ref(
@@ -117,19 +183,46 @@ def rglru_scan_ref(
     b: torch.Tensor,  # (B, S, W) input term
     h0: Optional[torch.Tensor] = None,  # (B, W)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """h_t = a_t * h_{t-1} + b_t in float32, step by step. Returns
-    (h_seq (B, S, W) f32, h_last (B, W) f32)."""
+    """h_t = a_t * h_{t-1} + b_t in ``promote(dtype, float32)``, step by
+    step. Returns (h_seq (B, S, W), h_last (B, W)), float32 for float32
+    inputs."""
     B, S, W = a.shape
-    h = (
-        torch.zeros((B, W), dtype=torch.float32, device=a.device)
-        if h0 is None
-        else h0.float()
-    )
-    hs = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    ct = compute_dtype(a.dtype)
+    h = torch.zeros((B, W), dtype=ct, device=a.device) if h0 is None else h0.to(ct)
+    hs = torch.empty((B, S, W), dtype=ct, device=a.device)
     for t in range(S):
-        h = a[:, t].float() * h + b[:, t].float()
+        h = a[:, t].to(ct) * h + b[:, t].to(ct)
         hs[:, t] = h
     return hs, h
+
+
+def rglru_scan_bwd_ref(
+    a: torch.Tensor,  # (B, S, W)
+    h: torch.Tensor,  # (B, S, W) the forward's states
+    h0: Optional[torch.Tensor],  # (B, W) or None (zeros)
+    dh: torch.Tensor,  # (B, S, W) gradient of h
+    dh_last: Optional[torch.Tensor] = None,  # (B, W) gradient of h_last
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``rglru_scan_ref`` by the reverse recurrence, in
+    ``promote(dtype, float32)``:
+
+      g_{S-1} = dh_{S-1} + dh_last,   g_t = dh_t + a_{t+1} g_{t+1}
+      db_t = g_t,   da_t = g_t h_{t-1} (h_{-1} = h0),   dh0 = a_0 g_0.
+
+    Returns (da, db, dh0)."""
+    B, S, W = a.shape
+    ct = compute_dtype(a.dtype)
+    g = torch.zeros((B, W), dtype=ct, device=a.device) if dh_last is None else dh_last.to(ct)
+    prev0 = torch.zeros((B, W), dtype=ct, device=a.device) if h0 is None else h0.to(ct)
+    da = torch.empty((B, S, W), dtype=ct, device=a.device)
+    db = torch.empty_like(da)
+    for t in range(S - 1, -1, -1):
+        if t + 1 < S:
+            g = a[:, t + 1].to(ct) * g
+        g = g + dh[:, t].to(ct)
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1].to(ct) if t > 0 else prev0)
+    return da, db, a[:, 0].to(ct) * g
 
 
 def ssd_scan_ref(

@@ -6,7 +6,7 @@ conventions:
   B batch, S sequence, D d_model, H query heads, KV kv heads, hd head_dim,
   F d_ff, W attention window.
 
-and its numerics: norms and RoPE compute in float32 (norms: ``widened``,
+and its numerics: norms, RoPE and attention compute in float32 (``widened``,
 float64 for float64 inputs) and cast back, masked
 scores take ``NEG_INF = -1e30``, attention scores and softmax run in
 float32, and decode attention rounds the scaled query and the
@@ -133,12 +133,12 @@ def layernorm(
 
 
 def rope_frequencies(
-    rot_dim: int, theta: float, positions: torch.Tensor
+    rot_dim: int, theta: float, positions: torch.Tensor, dtype: torch.dtype = torch.float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables. positions: (..., S) int -> (..., S, rot_dim/2)."""
-    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=positions.device)
+    """cos/sin tables in ``dtype``. positions: (..., S) int -> (..., S, rot_dim/2)."""
+    exps = torch.arange(0, rot_dim, 2, dtype=dtype, device=positions.device)
     inv = 1.0 / (theta ** (exps / rot_dim))
-    ang = positions.float()[..., None] * inv
+    ang = positions.to(dtype)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -153,6 +153,7 @@ def apply_rope(
     rot = int(hd * fraction)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
+    ct = widened(x.dtype)
 
     if mrope_sections is not None:
         # Qwen2-VL M-RoPE: the rot/2 frequency slots are split into three
@@ -160,15 +161,15 @@ def apply_rope(
         sec = tuple(mrope_sections)
         if sum(sec) != rot // 2:
             raise ValueError(f"mrope sections {sec} do not sum to {rot // 2}")
-        cos3, sin3 = rope_frequencies(rot, theta, positions)  # (3,B,S,rot/2)
+        cos3, sin3 = rope_frequencies(rot, theta, positions, ct)  # (3,B,S,rot/2)
         cos = torch.cat([torch.split(cos3[i], sec, dim=-1)[i] for i in range(3)], dim=-1)
         sin = torch.cat([torch.split(sin3[i], sec, dim=-1)[i] for i in range(3)], dim=-1)
     else:
-        cos, sin = rope_frequencies(rot, theta, positions)  # (B,S,rot/2)
+        cos, sin = rope_frequencies(rot, theta, positions, ct)  # (B,S,rot/2)
 
     cos = cos[..., None, :]  # (B, S, 1, rot/2)
     sin = sin[..., None, :]
-    x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(x_rot.to(ct), 2, dim=-1)
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     y = torch.cat([y1, y2], dim=-1).to(x.dtype)
@@ -188,9 +189,11 @@ def _expand_kv(k: torch.Tensor, q_per_kv: int) -> torch.Tensor:
     return torch.repeat_interleave(k, q_per_kv, dim=2)
 
 
-def _scale(hd: int) -> float:
-    """1/sqrt(hd) rounded to float32, as the reference computes it."""
-    return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+def _scale(hd: int, dtype: torch.dtype = torch.float32) -> float:
+    """1/sqrt(hd) rounded to ``dtype`` (float32, as the reference computes
+    it, unless the layers compute in float64)."""
+    one = torch.tensor(1.0, dtype=dtype)
+    return float(one / torch.sqrt(torch.tensor(float(hd), dtype=dtype)))
 
 
 def _band(qpos, kpos, causal: bool, window: Optional[int]) -> torch.Tensor:
@@ -213,14 +216,15 @@ def naive_attention(
     """Full-matrix attention (short sequences)."""
     Sq, hd = q.shape[1], q.shape[3]
     Skv = k.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(hd)
+    ct = widened(q.dtype)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * _scale(hd, ct)
     dev = q.device
     qpos = torch.arange(Sq, device=dev) + q_offset
     kpos = torch.arange(Skv, device=dev)
     mask = _band(qpos, kpos, causal, window)
     logits = torch.where(mask[None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(ct))
     return out.to(q.dtype)
 
 
@@ -241,28 +245,29 @@ def blocked_attention(
     if S % block_q or S % block_kv:
         raise ValueError(f"S={S} is not a multiple of blocks {block_q}/{block_kv}")
     nq, nk = S // block_q, S // block_kv
-    scale = _scale(hd)
+    ct = widened(q.dtype)
+    scale = _scale(hd, ct)
     dev = q.device
     qb = q.reshape(B, nq, block_q, H, hd).permute(1, 0, 3, 2, 4)  # (nq,B,H,bq,hd)
     kb = k.reshape(B, nk, block_kv, H, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(B, nk, block_kv, H, hd).permute(1, 0, 3, 2, 4)
     outs = []
     for qi in range(nq):
-        q32 = qb[qi].float() * scale
+        q32 = qb[qi].to(ct) * scale
         qpos = qi * block_q + torch.arange(block_q, device=dev)
-        acc = torch.zeros((B, H, block_q, hd), dtype=torch.float32, device=dev)
-        m = torch.full((B, H, block_q), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, block_q), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, H, block_q, hd), dtype=ct, device=dev)
+        m = torch.full((B, H, block_q), NEG_INF, dtype=ct, device=dev)
+        l = torch.zeros((B, H, block_q), dtype=ct, device=dev)
         for ki in range(nk):
             kpos = ki * block_kv + torch.arange(block_kv, device=dev)
-            s = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki].float())
+            s = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki].to(ct))
             s = torch.where(_band(qpos, kpos, causal, window)[None, None], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", p, vb[ki].float()
+                "bhqk,bhkd->bhqd", p, vb[ki].to(ct)
             )
             m = m_new
         outs.append(acc / torch.clamp(l[..., None], min=1e-30))

@@ -5,8 +5,8 @@
 ``nn.Module`` with its weights drawn on ``device`` from ``generator``
 (a fresh ``torch.Generator`` seeded 0 when None). Every model has
 ``prefill(tokens, extra_slots=0)``, ``decode_step(cache, token)`` and
-``init_cache(B, seq_len)``; the ssm family (mamba2) also trains:
-``forward(tokens)`` and ``loss(batch)``.
+``init_cache(B, seq_len)``, and trains: ``forward(tokens)`` and
+``loss(batch)``.
 """
 
 from __future__ import annotations

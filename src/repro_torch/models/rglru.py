@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin hybrid: RG-LRU recurrence + local attention
-[arXiv:2402.19427] (port of `repro.models.rglru`'s serving path).
+[arXiv:2402.19427] (port of `repro.models.rglru`).
 
 The layer pattern is the reference's: G = n_layers // attn_every groups of
 [R = attn_every - 1 recurrent layers, 1 local-attention layer], then a
@@ -14,10 +14,17 @@ RG-LRU (per channel):
   log a_t = -c * softplus(Lambda) * r_t          (c = 8)
   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill computes the gates as batched products and the recurrence with
-the RG-LRU scan kernel (``ssm_impl="kernel"``) or, on the plain path, a
-doubling (parallel-prefix) scan like the reference's associative scan.
-The local attention and all of decode stay plain, as in the reference.
+The full-sequence blocks (training's ``forward``/``loss`` and prefill)
+compute the gates as batched products and the recurrence with the RG-LRU
+scan kernel (``ssm_impl="kernel"``, differentiable on the card through its
+backward kernel) or, on the plain path, a doubling (parallel-prefix) scan
+like the reference's associative scan; the local attention goes through
+the flash-attention kernel (``attn_impl="kernel"``, likewise
+differentiable) or the plain path, which is the reference's (it has no
+kernel on this layer). Decode is plain. ``forward`` runs the reference's
+layer order, each group of [R recurrent layers, 1 attention layer] under
+``maybe_remat``, then the tail; the layers compute in float32 (float64
+for float64 weights).
 
 Cache (the reference's layout): lru (G, R, B, W) f32, conv
 (G, R, B, cw-1, W), k/v (G, B, C, KV, hd) ring with C = min(S + extra,
@@ -46,10 +53,13 @@ from .layers import (
     causal_conv,
     decode_attention,
     gelu,
+    maybe_remat,
     mlp_apply,
     naive_attention,
     rmsnorm,
+    widened,
 )
+from .losses import lm_loss
 from .transformer import _to_ring
 
 __all__ = ["RecBlock", "AttnBlock", "RecurrentGemma", "rglru_seq", "rglru_step"]
@@ -129,11 +139,13 @@ class AttnBlock(ParamModule):
 
 
 def _gates(lp, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32. x (B, S, W)."""
-    xf = x.float()
-    r = torch.sigmoid(xf @ lp.lru_wa.float() + lp.lru_ba)
-    i = torch.sigmoid(xf @ lp.lru_wx.float() + lp.lru_bx)
-    log_a = -_C_RGLRU * F.softplus(getattr(lp, "lambda")) * r  # (B, S, W)
+    """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32 (float64
+    for float64 inputs). x (B, S, W)."""
+    ct = widened(x.dtype)
+    xf = x.to(ct)
+    r = torch.sigmoid(xf @ lp.lru_wa.to(ct) + lp.lru_ba.to(ct))
+    i = torch.sigmoid(xf @ lp.lru_wx.to(ct) + lp.lru_bx.to(ct))
+    log_a = -_C_RGLRU * F.softplus(getattr(lp, "lambda").to(ct)) * r  # (B, S, W)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     return a, b
@@ -146,11 +158,11 @@ def rglru_seq(
     scan, the plain twin of the reference's associative scan.
 
     x: (B, S, W); h0: (B, W) carried state. Returns (h_seq in x's dtype,
-    h_last f32)."""
+    h_last in the gates' type)."""
     a, b = _gates(lp, x)
     # Fold the initial state into the first step: b_1 += a_1 * h0.
     b = b.clone()
-    b[:, 0] += a[:, 0] * h0.float()
+    b[:, 0] += a[:, 0] * h0.to(b.dtype)
     S = a.shape[1]
     stride = 1
     while stride < S:
@@ -180,11 +192,11 @@ def rglru_step(
 def _rec_block_seq(cfg: ModelConfig, lp, x, h0: Optional[torch.Tensor] = None):
     B = x.shape[0]
     h = rmsnorm(x, lp.ln)
-    gate = gelu((h @ lp.w_gate_in).float()).to(x.dtype)
+    gate = gelu((h @ lp.w_gate_in).to(widened(x.dtype))).to(x.dtype)
     xb = h @ lp.w_x
     xb = causal_conv(xb, lp.conv_w, lp.conv_b)
     if h0 is None:
-        h0 = torch.zeros((B, cfg.lru_width), dtype=torch.float32, device=x.device)
+        h0 = torch.zeros((B, cfg.lru_width), dtype=widened(x.dtype), device=x.device)
     if cfg.ssm_impl == "kernel":
         a, bb = _gates(lp, xb)
         hs, h_last = ops.rglru_scan(a, bb, h0)
@@ -206,15 +218,18 @@ def _attn_block_seq(cfg: ModelConfig, lp, x):
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q = apply_rope(q, pos, cfg.rope_theta)
     k_ = apply_rope(k_, pos, cfg.rope_theta)
-    kx, vx = _expand_kv(k_, cfg.q_per_kv), _expand_kv(v, cfg.q_per_kv)
-    # Plain attention, as in the reference (no kernel on this layer).
-    if S > 1024 and S % cfg.attn_block_q == 0 and S % cfg.attn_block_kv == 0:
-        o = blocked_attention(
-            q, kx, vx, causal=True, window=cfg.sliding_window,
-            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-        )
-    else:
-        o = naive_attention(q, kx, vx, causal=True, window=cfg.sliding_window)
+    if cfg.attn_impl == "kernel":
+        # MQA inside the kernel: the one kv head is read in place.
+        o = ops.flash_attention(q, k_, v, causal=True, window=cfg.sliding_window)
+    else:  # the reference's own path (it has no kernel on this layer)
+        kx, vx = _expand_kv(k_, cfg.q_per_kv), _expand_kv(v, cfg.q_per_kv)
+        if S > 1024 and S % cfg.attn_block_q == 0 and S % cfg.attn_block_kv == 0:
+            o = blocked_attention(
+                q, kx, vx, causal=True, window=cfg.sliding_window,
+                block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+            )
+        else:
+            o = naive_attention(q, kx, vx, causal=True, window=cfg.sliding_window)
     x = x + o.reshape(B, S, H * hd) @ lp.wo
     x = x + mlp_apply(rmsnorm(x, lp.ln2), lp, "geglu")
     return x, (k_, v)
@@ -266,7 +281,7 @@ def _attn_block_step(cfg: ModelConfig, lp, x, kc, vc, slot: int, pos_t: int, val
 
 
 class RecurrentGemma(ParamModule):
-    """Hybrid RG-LRU + local-attention LM (serving path). Its own
+    """Hybrid RG-LRU + local-attention LM (training and serving). Its own
     parameters are the embedding, the final norm and the untied head."""
 
     def __init__(self, cfg: ModelConfig, device="cuda") -> None:
@@ -304,6 +319,36 @@ class RecurrentGemma(ParamModule):
         x = rmsnorm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head
+
+    # ---- training -----------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Hidden states (B, S, D) after the final norm: each group of R
+        recurrent layers and one attention layer under ``maybe_remat`` (the
+        reference's remat of its group scan), then the tail recurrent
+        layers."""
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+
+        def group(x, g):
+            for lp in self.rec[g]:
+                x, _ = _rec_block_seq(cfg, lp, x)
+            return _attn_block_seq(cfg, self.attn[g], x)[0]
+
+        for g in range(len(self.attn)):
+            x = maybe_remat(lambda u, g=g: group(u, g), cfg.remat)(x)
+        for lp in self.tail_rec:
+            x, _ = _rec_block_seq(cfg, lp, x)
+        return rmsnorm(x, self.final_norm)
+
+    def loss(self, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """The reference's loss_fn: mean token NLL (row-weighted when the
+        batch has ``loss_weights``); returns (loss, {"nll", "moe_aux"})."""
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        logits = self.forward(batch["tokens"]) @ head
+        loss = lm_loss(logits, batch["labels"], batch.get("loss_weights"))
+        zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"nll": loss, "moe_aux": zero}
 
     def init_cache(self, B: int, seq_len: int) -> dict:
         cfg = self.cfg

@@ -1,20 +1,24 @@
 """Decoder-only transformer LM, dense family (port of
-`repro.models.transformer`'s serving path).
+`repro.models.transformer`).
 
-Serves qwen3-0.6b (and any dense config): ``Transformer`` is an
+Trains and serves qwen3-0.6b (and any dense config): ``Transformer`` is an
 ``nn.Module`` whose ``layers`` is an ``nn.ModuleList`` of per-layer
 ``DenseBlock``s, with
 
+  forward(tokens) -> (hidden (B, S, D), moe_aux)   training forward
+  loss(batch)     -> (loss, metrics)               the reference's loss_fn
   prefill(tokens, extra_slots=0)  -> (logits of the last position, cache)
   decode_step(cache, token)       -> (logits, cache)
   init_cache(B, seq_len)          -> cache
 
 Weights keep the reference's names and ``(in, out)`` orientation
 (``x @ W``), so `repro_torch.models.params.from_reference` loads a layer
-as a slice of the reference's stacked arrays. Prefill attention goes
-through the flash-attention kernel (``attn_impl="kernel"``) or the plain
-path (``"plain"``: full-matrix, or blocked above 1024 tokens, as in the
-reference); decode is plain.
+as a slice of the reference's stacked arrays. Full-sequence attention
+(training and prefill) goes through the flash-attention kernel
+(``attn_impl="kernel"``; differentiable on the card through its backward
+kernel) or the plain path (``"plain"``: full-matrix, or blocked above
+1024 tokens, as in the reference); decode is plain. ``forward`` runs each
+layer under ``maybe_remat``.
 
 Cache layout (as the reference's): dict(k=(L, B, C, KV, hd), v=..., len)
 with C = min(seq_len, sliding_window), a ring buffer indexed by
@@ -45,10 +49,12 @@ from .layers import (
     blocked_attention,
     decode_attention,
     layernorm,
+    maybe_remat,
     mlp_apply,
     naive_attention,
     rmsnorm,
 )
+from .losses import lm_loss
 
 __all__ = ["DenseBlock", "Transformer", "cache_capacity", "_to_ring"]
 
@@ -167,7 +173,7 @@ def _to_ring(k: torch.Tensor, S: int, C: int) -> torch.Tensor:
 
 
 class Transformer(ParamModule):
-    """Dense decoder-only LM (serving path). Its own parameters are the
+    """Dense decoder-only LM (training and serving). Its own parameters are the
     embedding, the final norm and the untied head; ``layers`` holds the
     blocks."""
 
@@ -208,6 +214,36 @@ class Transformer(ParamModule):
     def logits_from_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return hidden @ head
+
+    # ---- training -----------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward: (hidden (B, S, D) after the final norm,
+        moe_aux). Each layer runs under ``maybe_remat``; the dense family's
+        auxiliary loss is 0 (MoE is not ported)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = _positions(cfg, B, S, x.device)
+
+        def block(x, lp):
+            x, _ = _self_attention(cfg, lp, x, positions)
+            return _ffn(cfg, lp, x)
+
+        for lp in self.layers:
+            x = maybe_remat(lambda u, lp=lp: block(u, lp), cfg.remat)(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._final(x), aux
+
+    def loss(self, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """The reference's loss_fn: mean token NLL (row-weighted when the
+        batch has ``loss_weights``) plus ``router_aux_weight * moe_aux``;
+        returns (total, {"nll", "moe_aux"})."""
+        hidden, aux = self.forward(batch["tokens"])
+        logits = self.logits_from_hidden(hidden)
+        loss = lm_loss(logits, batch["labels"], batch.get("loss_weights"))
+        total = loss + self.cfg.router_aux_weight * aux
+        return total, {"nll": loss, "moe_aux": aux}
 
     # ---- serving ----------------------------------------------------------
 

@@ -38,7 +38,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                     "distributed.plain", "launch.train", "data.lsq",
                     "methods.walkman", "methods.gossip", "methods.privacy",
                     "methods.compression", "core.baselines",
-                    "methods.reductions", "control.bandit", "control.kernel"):
+                    "methods.reductions", "control.bandit", "control.kernel",
+                    "distributed.consensus"):
             assert "repro_torch." + mod in names, mod
         print(len(names))
         """

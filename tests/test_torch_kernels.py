@@ -354,15 +354,17 @@ def test_new_kernel_wrappers_refuse_cpu_and_other_devices():
 
 
 def test_k3_and_k5_refuse_inputs_that_need_a_gradient():
-    """No backward kernel yet: under grad mode an input that requires a
-    gradient raises (before any launch), instead of an output that would
-    silently drop the gradient. Without grad mode the device check runs."""
+    """The raw launchers record no gradient (the backward kernels run only
+    through the autograd Functions of `ops`): under grad mode an input
+    that requires a gradient raises (before any launch), instead of an
+    output that would silently drop the gradient. Without grad mode the
+    device check runs."""
     t = torch.zeros(1, 8, 2, 64)
     q = t.clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward yet.*ROADMAP"):
+    with pytest.raises(RuntimeError, match="records no gradient.*ops.flash_attention"):
         flash_attention_kernel(q, t, t)
     a = torch.zeros(1, 8, 4)
-    with pytest.raises(RuntimeError, match="no backward yet.*ROADMAP"):
+    with pytest.raises(RuntimeError, match="records no gradient.*ops.rglru_scan"):
         rglru_scan_kernel(a, a, torch.zeros(1, 4, requires_grad=True))
     with torch.no_grad():
         with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -17,6 +17,9 @@ against the sequential recurrence run in float64 on the same input values
 reads bf16 exactly and computes in float32, so only its float32 round-off
 shows (a float32 plain version would add its own, growing with S). Its
 gradient is held against autograd of the plain ``ssd_chunked`` at 1e-6.
+The backward kernels of K3 and K5 are held against their plain twins
+(``flash_attention_bwd_ref``, ``rglru_scan_bwd_ref``) at the levels
+stated beside each test.
 """
 
 import numpy as np
@@ -309,14 +312,155 @@ def test_ssd_scan_gradient_on_the_card_is_autograd_of_ssd_chunked(cuda):
 
 @pytest.mark.gpu
 def test_k3_and_k5_refuse_inputs_that_need_a_gradient(cuda):
+    """The raw launchers record no gradient and refuse inputs that need
+    one; the entry points of `ops` differentiate through the backward
+    kernels instead (a query offset, which training never uses, raises)."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.rglru_scan import rglru_scan_kernel
+
     q = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
     k = torch.randn(1, 64, 2, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        t_ops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        flash_attention_kernel(q, k, k)
     a = torch.rand(1, 8, 32, device=cuda)
     b = torch.randn(1, 8, 32, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        t_ops.rglru_scan(a, b)
-    with torch.no_grad():  # serving: no gradient, the kernels run
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        rglru_scan_kernel(a, b)
+    assert t_ops.flash_attention(q, k, k).requires_grad
+    assert t_ops.rglru_scan(a, b)[0].requires_grad
+    with pytest.raises(ValueError, match="q_offset"):
+        t_ops.flash_attention(q, k, k, q_offset=8)
+    with torch.no_grad():  # serving: no gradient, the forward kernels run
         assert t_ops.flash_attention(q, k, k).shape == q.shape
         assert t_ops.rglru_scan(a, b)[0].shape == b.shape
+
+
+# ---- the backward kernels (K3, K5) ------------------------------------------
+
+# K3's backward against its twin from the same inputs, output, log-sum-exp
+# and output gradient, normwise: f32 at round-off (other summation orders;
+# dQ by atomics in any order), bf16 at a few bf16 ulps of the rounded
+# gradients (both compute in f32 from the same bf16 values).
+FA_BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _bwd_inputs(B, H, KV, S, hd, dtype, window, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g).to(TORCH[dtype]).to(device)
+    k, v = (torch.randn(B, S, KV, hd, generator=g).to(TORCH[dtype]).to(device) for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=g).to(TORCH[dtype]).to(device)
+    o, lse = t_ref.flash_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=window, return_lse=True,
+    )
+    return q, k, v, o.transpose(1, 2).contiguous(), do, lse.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,H,KV,S,hd,window",
+    [
+        (2, 4, 2, 256, 128, None),  # GQA
+        (1, 8, 1, 300, 256, 100),  # MQA, a window, ragged tiles
+        (2, 4, 4, 130, 64, None),
+        (1, 16, 8, 1024, 128, None),  # the qwen3-0.6b heads
+        (1, 16, 1, 600, 256, 256),  # the recurrentgemma-9b heads
+    ],
+)
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda, dtype, B, H, KV, S, hd, window):
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+
+    q, k, v, o, do, lse = _bwd_inputs(B, H, KV, S, hd, dtype, window, cuda, S + hd)
+    before = FA["flash_attention_bwd"]
+    got = flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert FA["flash_attention_bwd"] == before + 1
+    want = t_ref.flash_attention_bwd_ref(
+        *(t.transpose(1, 2) for t in (q, k, v, o, do)), lse, True, window
+    )
+    for name, g_, w in zip("qkv", got, want):
+        w = w.transpose(1, 2)
+        assert g_.dtype == w.dtype and g_.shape == w.shape, name
+        assert torch.isfinite(g_).all(), name
+        assert _normwise(g_, w) <= FA_BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+def test_flash_attention_forward_lse_is_the_plain_one(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    for dtype, hd in (("float32", 128), ("bfloat16", 128), ("bfloat16", 256)):
+        q, k, v, _, _, lse = _bwd_inputs(2, 4, 2, 333, hd, dtype, 100, cuda, hd)
+        out, got = flash_attention_kernel(q, k, v, causal=True, window=100, return_lse=True)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == lse.shape
+        assert (got - lse).abs().max().item() <= 1e-4, dtype
+
+
+# K5's backward against its twin, normwise: the same reverse recurrence in
+# f32, composed chunk by chunk (another order of the same products).
+RG_BWD_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,S,W", [(2, 512, 4096), (1, 1000, 300), (1, 2049, 300), (1, 4096, 4096)])
+def test_rglru_scan_bwd_kernel_matches_plain_version(cuda, B, S, W, with_h0):
+    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_kernel
+
+    g = torch.Generator(device="cpu").manual_seed(S + W)
+    a = (torch.rand(B, S, W, generator=g) * 0.8 + 0.2).to(cuda)
+    h = torch.randn(B, S, W, generator=g).to(cuda)
+    dh = torch.randn(B, S, W, generator=g).to(cuda)
+    dl = torch.randn(B, W, generator=g).to(cuda)
+    h0 = torch.randn(B, W, generator=g).to(cuda) if with_h0 else None
+    before = RG["rglru_scan_bwd"]
+    da, db, dh0 = rglru_scan_bwd_kernel(a, h, h0, dh, dl)
+    torch.cuda.synchronize()
+    assert RG["rglru_scan_bwd"] == before + 1
+    want = t_ref.rglru_scan_bwd_ref(a, h, h0, dh, dl)
+    for name, got, w in zip(("da", "db", "dh0"), (da, db, dh0), want):
+        assert torch.isfinite(got).all(), name
+        assert _normwise(got, w) <= RG_BWD_TOL, name
+
+
+@pytest.mark.gpu
+def test_autograd_through_k3_and_k5_on_the_card(cuda):
+    """ops.flash_attention and ops.rglru_scan on CUDA tensors that need a
+    gradient: one forward and one backward launch each, gradients equal
+    to autograd of the plain versions (f32 round-off)."""
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(2, 200, 4, 64, generator=g).to(cuda).requires_grad_(True)
+    kv = torch.randn(2, 2, 200, 2, 64, generator=g).to(cuda).requires_grad_(True)
+    before = dict(FA)
+    out = t_ops.flash_attention(q, kv[0], kv[1], causal=True, window=50)
+    do = torch.randn(out.shape, generator=g).to(cuda)
+    got = torch.autograd.grad(out, (q, kv), do)
+    assert FA == {"flash_attention": before["flash_attention"] + 1,
+                  "flash_attention_bwd": before["flash_attention_bwd"] + 1}
+    ref_out = t_ref.flash_attention_ref(
+        q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2), True, 50
+    ).transpose(1, 2)
+    want = torch.autograd.grad(ref_out, (q, kv), do)
+    for got_, want_ in zip(got, want):
+        assert _normwise(got_, want_) <= 1e-5
+
+    a = (torch.rand(2, 100, 40, generator=g) * 0.8 + 0.2).to(cuda).requires_grad_(True)
+    b = torch.randn(2, 100, 40, generator=g).to(cuda).requires_grad_(True)
+    h0 = torch.randn(2, 40, generator=g).to(cuda).requires_grad_(True)
+    before = dict(RG)
+    h, h_last = t_ops.rglru_scan(a, b, h0)
+    dh = torch.randn(h.shape, generator=g).to(cuda)
+    got = torch.autograd.grad((h * dh).sum() + h_last.sum(), (a, b, h0))
+    assert RG == {"rglru_scan": before["rglru_scan"] + 1,
+                  "rglru_scan_bwd": before["rglru_scan_bwd"] + 1}
+    hr, hlr = t_ref.rglru_scan_ref(a, b, h0)
+    want = torch.autograd.grad((hr * dh).sum() + hlr.sum(), (a, b, h0))
+    for got_, want_ in zip(got, want):
+        assert _normwise(got_, want_) <= 1e-5

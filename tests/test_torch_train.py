@@ -476,9 +476,12 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    base = ["--arch", ARCH, "--smoke", "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main([*base, "--device", "cpu", "--mode", "consensus"])
+    """An arch whose family is not ported (MoE) raises naming ROADMAP, in
+    either mode; without a card the default device raises."""
+    for mode in ("plain", "consensus"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            train.main(["--arch", "mixtral-8x22b", "--smoke", "--steps", "1",
+                         "--device", "cpu", "--mode", mode])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
-            train.main(base)
+            train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
