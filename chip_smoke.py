@@ -266,10 +266,13 @@ ATTN_BWD_SHAPES = {
     "qwen3_train": (4, 2048, 16, 8, 128, None, torch.bfloat16),
     "qwen3_train_f32": (4, 2048, 16, 8, 128, None, torch.float32),
     "rg_train": (1, 4096, 16, 1, 256, 2048, torch.bfloat16),
+    "hd64": (4, 2048, 16, 8, 64, None, torch.bfloat16),  # the qwen3 step at hd 64
 }
 SCAN_BWD_SHAPES = {"rg_train": (1, 4096, 4096)}
-K3_BWD_KERNELS = ("flash_attention_bwd_prep_kernel", "flash_attention_bwd_kernel",
-                  "flash_attention_bwd_finish_kernel")
+# K3's backward: prep, the main body (bf16: the tensor-core body; f32: the
+# CUDA-core body), finish.
+K3_BWD_KERNELS = ("flash_attention_bwd_prep_kernel", "flash_attention_bwd_tc_kernel",
+                  "flash_attention_bwd_kernel", "flash_attention_bwd_finish_kernel")
 K5_BWD_KERNELS = ("rglru_scan_reset_kernel", "rglru_scan_bwd_kernel")
 # Backward kernel vs its plain twin on the same inputs (the forward's output
 # and log-sum-exp included), normwise: K3 in f32 at f32 round-off (other
@@ -523,6 +526,8 @@ def phase_build():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
     sass_check(built[names.index("ssd_scan")][0], ("ssd_scores_kernel", "ssd_scan_tc_kernel"))
+    sass_check(built[names.index("flash_attention")][0],
+               ("flash_attention_tc_kernel", "flash_attention_bwd_tc_kernel"))
 
 
 def sass_check(lib, tensor_core_kernels) -> dict:
@@ -1542,13 +1547,16 @@ def phase_backward_kernels():
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
+        bwd_plan,
         flash_attention_bwd_kernel,
         flash_attention_kernel,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
 
     rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape_name, (B, S, H, KV, hd, window, dtype) in ATTN_BWD_SHAPES.items():
+        plan = bwd_plan(dtype, B, KV, H // KV, S, hd, sms)
         g = torch.Generator(device="cuda").manual_seed(S * hd + H + 1)
         q, k, v = (
             torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
@@ -1580,10 +1588,12 @@ def phase_backward_kernels():
         got = kern()
         want = [w.transpose(1, 2) for w in plain()]
         torch.cuda.synchronize()
-        times = pass_times(f"flash_attention_bwd {shape_name}", kern, 3, K3_BWD_KERNELS)
+        passes = (K3_BWD_KERNELS[0], plan.body, K3_BWD_KERNELS[-1])
+        times = pass_times(f"flash_attention_bwd {shape_name}", kern, 3, passes)
         row = dict(
             name="flash_attention_bwd", shape=shape_name, B=B, S=S, H=H, KV=KV, hd=hd,
-            window=window, dtype=str(dtype).replace("torch.", ""),
+            window=window, dtype=str(dtype).replace("torch.", ""), body=plan.body,
+            keys_per_block=plan.keys, head_split=plan.split, blocks=plan.blocks,
             max_abs_err=max(max_err(a, b) for a, b in zip(got, want)),
             normwise_err={n: normwise_gap(a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)},
             tol=ATTN_BWD_TOL[dtype], ms=cuda_ms(kern, 3), device_ms=times["device_ms"],
@@ -1632,6 +1642,106 @@ def phase_backward_kernels():
             hold(f"rglru_scan_bwd {shape_name} {n}", x, y, SCAN_BWD_TOL)
         del a, b, h0, dh, dl, h, got, want
         torch.cuda.empty_cache()
+    return rows
+
+
+# Variants of the bf16 K3 backward body, by text surgery on its source, to
+# show where its time goes: "red_atomics" adds dQ by float2 RED
+# instructions from registers in place of the TMA reduce-adds; "no_dq_adds"
+# issues no dQ adds at all (dQ wrong, dK and dV unchanged).
+_K3_DQ_STAGE = """        const uint32_t off = (col / 32) * kBox + sm90::swz128(row, (col % 32) / 4) + (col % 4) * 4;
+        *reinterpret_cast<float2*>(stage + off) = make_float2(scale * dq[i], scale * dq[i + 1]);"""
+_K3_DQ_RED = """        if (q0 + row < Sq)
+          atomicAdd(reinterpret_cast<float2*>(
+                        dq_acc + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * HD + col),
+                    make_float2(scale * dq[i], scale * dq[i + 1]));"""
+_K3_DQ_TMA = """        sm90::tma_reduce_add_4d(&tdq, stage + box * kBox, box * 32, h, q0, b);"""
+
+
+def k3_bwd_variants():
+    """{name: source text} of the bf16 K3 backward's variants."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    for anchor in (_K3_DQ_STAGE, _K3_DQ_TMA):
+        if src.count(anchor) != 1:
+            raise AssertionError(f"k3 backward variants: anchor not found once: {anchor!r}")
+    no_tma = src.replace(_K3_DQ_TMA, "        if (box < 0) " + _K3_DQ_TMA.lstrip())
+    return {"red_atomics": no_tma.replace(_K3_DQ_STAGE, _K3_DQ_RED), "no_dq_adds": no_tma}
+
+
+def phase_k3_bwd_variants():
+    """The bf16 K3 backward's main kernel against its variants
+    (`k3_bwd_variants`) at the bf16 shapes of ATTN_BWD_SHAPES, turn about
+    (kernel, variants, variants in reverse, kernel): device ms of the main
+    kernel, dK and dV checked bit for bit against the kernel and, for
+    red_atomics, dQ at the bf16 bound. A diagnostic: the launches do not
+    count for the main path."""
+    import ctypes
+    import importlib
+
+    from repro_torch.kernels import _build
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    libs, procs = {"kernel": _build.build("flash_attention")}, {}
+    for name, text in k3_bwd_variants().items():
+        (out / f"{name}.cu").write_text(text)
+        libs[name] = out / f"lib{name}.so"
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.flags("flash_attention"), "-I", str(_build.CSRC),
+             "-o", str(libs[name]), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"k3 backward variant {name} failed to build:\n{text}")
+    real_load = _build.load
+
+    def use(name):
+        _build.load = lambda _: ctypes.CDLL(str(libs[name]))
+        fa._lib.cache_clear()
+
+    order = ["kernel", *procs, *reversed(procs), "kernel"]
+    rows = []
+    try:
+        for shape_name, (B, S, H, KV, hd, window, dtype) in ATTN_BWD_SHAPES.items():
+            if dtype != torch.bfloat16:
+                continue
+            g = torch.Generator(device="cuda").manual_seed(S * hd + H + 2)
+            q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
+                       for n in (H, KV, KV))
+            do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
+            use("kernel")
+            with torch.no_grad():
+                o, lse = fa.flash_attention_kernel(q, k, v, causal=True, window=window,
+                                                   return_lse=True)
+
+            def call():
+                return fa.flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True,
+                                                     window=window)
+
+            ref = call()
+            row = dict(shape=shape_name, main_ms={n: [] for n in libs})
+            for name in order:
+                use(name)
+                got = call()
+                torch.cuda.synchronize()
+                if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])):
+                    raise AssertionError(f"k3 backward variant {name} {shape_name}: dK or dV moved")
+                if name != "no_dq_adds":
+                    hold(f"k3 backward variant {name} {shape_name} dq", got[0], ref[0],
+                         ATTN_BWD_TOL[dtype])
+                passes = (K3_BWD_KERNELS[0], "flash_attention_bwd_tc_kernel", K3_BWD_KERNELS[-1])
+                row["main_ms"][name].append(
+                    pass_times(name, call, 5, passes)["passes"]["flash_attention_bwd_tc_kernel"])
+            log("[k3-bwd-variants] " + json.dumps(row))
+            rows.append(row)
+            del q, k, v, do, o, lse, ref, got
+    finally:
+        _build.load = real_load
+        fa._lib.cache_clear()
     return rows
 
 
@@ -2520,6 +2630,7 @@ def main() -> int:
     phase_attention_scan()
     rows += phase_scan_kernels()
     rows += phase_backward_kernels()
+    phase_k3_bwd_variants()
     rows += phase_ssd_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()

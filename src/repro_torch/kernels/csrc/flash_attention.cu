@@ -101,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -478,10 +480,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int off = (kk % 4) * 32;  // bytes into the 128-byte row
       const uint64_t da = q_desc + (((kk / 4) * kBQ * kRowBytes + off) >> 4);
       const uint64_t db = k_desc + (((kk / 4) * kBK * kRowBytes + off) >> 4);
-      if constexpr (kBK == 128)
-        sm90::wgmma_m64n128k16_ss(sc, da, db, kk > 0);
-      else
-        sm90::wgmma_m64n64k16_ss(sc, da, db, kk > 0);
+      sm90::wgmma_ss_t<kBK, 0, 0>(sc, da, db, kk > 0);
     }
   };
   // O += P V of the tile in stage s, P from registers (issued, not waited).
@@ -657,32 +656,36 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 (B, S, heads, hd) tensor as the 4-d map (hd, heads, S, B) with
-// boxes of 64 columns x `rows` rows of one head, 128-byte swizzled; rows
-// past S read as zeros.
+// A bf16 (or, with f32, a float32) (B, S, heads, hd) tensor as the 4-d
+// map (hd, heads, S, B) with boxes of one 128-byte row (64 bf16 or 32
+// float32 columns) x `rows` rows of one head, 128-byte swizzled; rows past
+// S read as zeros (and are dropped by a reduce-add).
 bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads,
-                int64_t S, int B, int rows) {
+                int64_t S, int B, int rows, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const cuuint64_t es = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
-                                 static_cast<cuuint64_t>(heads) * hd * 2,
-                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * es,
+                                 static_cast<cuuint64_t>(heads) * hd * es,
+                                 static_cast<cuuint64_t>(S) * heads * hd * es};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kRowBytes / es), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc
 
 
-// ---- backward: the CUDA-core body -----------------------------------------
+// ---- backward --------------------------------------------------------------
 //
 // The gradient of the attention above for query positions from 0 (training
 // never offsets them), from the forward's output O and its rows'
@@ -691,41 +694,99 @@ bool encode_map(CUtensorMap* map, const void* ptr, int hd, int heads,
 //   P    = exp(S - L) inside the band, 0 outside, S = Q K^T / sqrt(hd)
 //   dV  += P^T dO,   dS = P o (dO V^T - D),   dK += dS^T Q / sqrt(hd)
 //   dQ  += dS K / sqrt(hd)                         (main kernel)
-// then dQ, dK, dV cast to the input type (finish kernel). Everything is
-// float32 on the CUDA cores, for both input types: a simple body first;
-// the tensor cores are later work (ROADMAP Queue 2).
+// then dQ, dK, dV cast to the input type (finish kernel).
 //
 // Bound on this card: operations, 10 hd flops per live (query, key) pair
 // (five products; 2.5 times the forward's): at the qwen3-0.6b training
 // step (B 4, S 2048, H 16, hd 128, causal) about 172 GFLOP, 0.17 ms at the
 // bf16 tensor-core peak, 2.6 ms at the float32 CUDA-core peak.
 //
-// Design:
-// - one block of 256 threads per (key tile of kBK keys, kv head g, batch
-//   b, head split): K and V of the tile stay in shared memory (float32)
-//   while the block walks the query tiles of kBQ rows that meet the
-//   tile's causal/window band, for each query head that reads g (all
-//   q_per_kv of them, or 1/split of them: MQA leaves one kv head, and
-//   recurrentgemma's B 1 x 128 key tiles would not fill 132 SMs, so the
-//   wrapper splits the heads until the grid does);
+// Shared by both main bodies, chosen by dtype alone (no fallback from one
+// to the other):
+// - one block per (key tile, kv head g, batch b, head split), key tiles
+//   nearest the start (the longest bands under causal masking) first: K
+//   and V of the tile stay in shared memory while the block walks the
+//   query tiles that meet the tile's causal/window band, for each query
+//   head that reads g (all q_per_kv of them, or 1/split of them: MQA
+//   leaves one kv head, and recurrentgemma's B 1 would not fill 132 SMs,
+//   so the wrapper splits the heads until the grid does);
 // - dK and dV accumulate in registers over every query row the block
 //   visits and are written once, as float32 partials per head split,
 //   which the finish kernel sums;
-// - dQ of a (query tile, key tile) pair is added by float32 atomics into
-//   a zeroed float32 buffer: one pass over the band. The other choice, a
-//   second pass per query tile, would recompute S, P and dP (three of the
-//   five products) to save the atomics, which cost 4 bytes a dQ element
-//   per visiting key tile in L2 and leave dQ's summation order to the
-//   hardware (run-to-run differences at float32 round-off);
-// - a thread (tm, tn) = (tid / 16, tid % 16) owns query rows tm + 16 i and
-//   key columns tn + 16 j of S, dP; keys tm + 16 i and columns tn + 16 j of
-//   dK, dV; rows tm + 16 i and columns tn + 16 j of dQ. Shared rows are
-//   padded to an odd length, so the column-strided reads hit 16 banks;
-// - tiles: 64 keys x 64 query rows for hd <= 128, 32 x 32 at hd 256 (K, V,
-//   Q, dO, P, dS and the rows' L and D in float32: 166 KB at hd 128,
-//   140 KB at hd 256; one block an SM);
-// - the key tiles nearest the start (the longest bands under causal
-//   masking) launch first.
+// - dQ of a (query tile, key tile) pair is added into a zeroed float32
+//   buffer in L2 (atomics, or TMA's reduce-add): one pass over the band.
+//   The other choice, a second pass per query tile, would recompute S, P
+//   and dP (three of the five products) to save the adds, which cost 4
+//   bytes a dQ element per visiting key tile in L2 and leave dQ's
+//   summation order to the hardware (run-to-run differences at float32
+//   round-off; dK and dV are the same bit for bit from run to run).
+//
+// * bfloat16 -> flash_attention_bwd_tc_kernel, on the tensor cores (hd 64,
+//   128, 256). The first design (the CUDA-core body below, still
+//   float32's) ran all five products as float32 FMAs on the CUDA cores,
+//   converted every bf16 element to float32 on a synchronous load with no
+//   overlap of loads and math, and passed P and dS through shared memory
+//   as float32: 21 TFLOP/s at the qwen3 step, 15x slower than SDPA's
+//   backward. This one:
+//   - 64 keys a block and 64 query rows a step at every head dim; two
+//     warpgroups and no producer warp (ptxas of CUDA 12.9 sizes a wgmma
+//     kernel for whole warpgroups and ignores setmaxnreg, as the forward's
+//     header says);
+//   - K and V (once) and each step's Q and dO tiles arrive by TMA from 4-d
+//     tensor maps (hd, heads, S, B) with 128-byte swizzle, Q and dO into a
+//     ring of three stages (two at hd 256, for shared memory) awaited on
+//     mbarriers; whichever warpgroup is done with a stage second refills
+//     it (the forward's per-stage count of releases). Rows past S read as
+//     zeros;
+//   - warpgroup cw computes the transposed scores of query columns
+//     32 cw .. 32 cw + 31 of the step: S^T = K Q^T and dP^T = V dO^T by
+//     wgmma m64n32k16 (bf16 in, f32 accumulate), both operands K-major as
+//     they lie. Splitting by query columns keeps the two warpgroups
+//     symmetric and their registers small at every head dim (a split by
+//     keys would hold dK and dV for all hd columns: 256 registers a
+//     thread at hd 256);
+//   - P^T = 2^(S^T scale log2 e - L log2 e) and dS^T = P^T o (dP^T - D) in
+//     registers, L and D of the thread's eight query columns read from
+//     global memory (L2) before the step's products are issued; L is +inf
+//     past Sq, so those columns give P = 0 with no compare; the band and
+//     key-edge mask is applied only on tiles that cross them;
+//   - P^T and dS^T are rounded to bf16 (about 2^-9 relative, what SDPA's
+//     and FA3's backward do) and stored into [64 keys][64 queries] tiles in
+//     shared memory with the 128-byte swizzle, double-buffered by step, so
+//     one barrier a step joins the two warpgroups' halves;
+//   - warpgroup cw then owns columns hd/2 cw .. hd/2 (cw + 1) - 1 of dK, dV
+//     and dQ: dV += P^T dO and dK += dS^T Q (A K-major from the tiles, B
+//     N-major with the transpose bit: dO and Q never transposed in
+//     memory), and dQ = dS K from the same dS^T tile read M-major (both
+//     transpose bits), N = hd / 2 each (32, 64 or 128). dK and dV take
+//     hd / 2 registers a thread each, dQ hd / 4;
+//   - dQ leaves through the step's own Q/dO stage once both warpgroups are
+//     done with it (one more barrier a step): each writes its dQ columns
+//     there as float32 boxes of [64 rows][32 columns] with the 128-byte
+//     swizzle, and one thread a warpgroup adds them into dq_acc by TMA
+//     (cp.reduce.async.bulk.tensor .add through a float32 map of dq_acc;
+//     rows past Sq dropped), waits until they are read, then takes its
+//     part in refilling the stage. The adds are traffic, not latency: as
+//     float2 RED instructions they ran at about 1.2 TB/s of adds into L2
+//     and took a fifth of the kernel's time at the qwen3 step (0.951
+//     against 0.779 ms); issuing the next step's scores before them, or
+//     reading L and D a step ahead, gained nothing (PERF.md).
+// * float32 -> flash_attention_bwd_kernel, the first design's CUDA-core
+//   body, unchanged: level with SDPA's backward in float32 (8.094 against 8.063
+//   ms at the qwen3 step), and the tensor cores would need TF32, which
+//   cannot meet the float32 tolerance of 1e-5. Block (key tile, g, b,
+//   split) of 256 threads:
+//   - a thread (tm, tn) = (tid / 16, tid % 16) owns query rows tm + 16 i
+//     and key columns tn + 16 j of S, dP; keys tm + 16 i and columns
+//     tn + 16 j of dK, dV; rows tm + 16 i and columns tn + 16 j of dQ.
+//     Shared rows are padded to an odd length, so the column-strided reads
+//     hit 16 banks;
+//   - tiles: 64 keys x 64 query rows for hd <= 128, 32 x 32 at hd 256 (K,
+//     V, Q, dO, P, dS and the rows' L and D in float32: 166 KB at hd 128,
+//     140 KB at hd 256; one block an SM).
+
+// Error codes of this library beyond cudaError_t's range.
+constexpr int kErrTensorMap = 100000;
 
 namespace bwd {
 
@@ -968,6 +1029,301 @@ flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bfloat16: the tensor-core main body ----------------------------------
+
+namespace tcb {
+
+constexpr int kBK = 64;          // keys a block
+constexpr int kBQ = 64;          // query rows a step
+constexpr int kBox = 64 * 128;   // one TMA box, [64 rows][64 bf16 columns]
+constexpr int kAtom = 1024;      // 8 rows x 128 bytes: one swizzle atom
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr int kChunks = HD / 64;            // boxes across hd
+  static constexpr int kNC = HD / 2;                 // dK/dV/dQ columns a warpgroup owns
+  static constexpr int kQN = kNC < 64 ? kNC : 64;    // dQ columns a product
+  static constexpr int kStages = HD <= 128 ? 3 : 2;  // Q/dO ring depth
+  static constexpr int kTile = kChunks * kBox;       // 64 rows x hd
+  static constexpr int kStageBytes = 2 * kTile;      // Q and dO
+  // K, V, the ring, P^T and dS^T twice each, + slack to align on an atom
+  static constexpr int kSmem = 2 * kTile + kStages * kStageBytes + 4 * kBox + kAtom;
+  static_assert(kSmem + 128 <= 232448, "shared memory of one CTA (+ barriers)");
+};
+
+// Grid: one CTA per (key tile, head split, b, g), key tiles slowest, 1-d.
+// Shared memory (from a 1024-byte boundary): K and V as kChunks boxes of
+// [64 keys][64 cols] each, the ring of Q and dO tiles (the same boxes of 64
+// query rows), then P^T and dS^T as [64 keys][64 queries] bf16 tiles, two
+// of each; every box 128-byte swizzled.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_bwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tdq,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq_acc,
+                              float* __restrict__ dk_part,
+                              float* __restrict__ dv_part, int B, int H,
+                              int KV, int Sq, int Skv, int causal, int window,
+                              int split, float scale, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int kStages = C::kStages, kNC = C::kNC, kQN = C::kQN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t bar_kv, bar_full[kStages];
+  __shared__ unsigned released[kStages];  // warpgroups done with a stage, ever
+
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  uint8_t* Ks = smem_raw + ((kAtom - raw % kAtom) % kAtom);
+  uint8_t* Vs = Ks + C::kTile;
+  uint8_t* ring = Vs + C::kTile;
+  uint8_t* Pt = ring + kStages * C::kStageBytes;
+  uint8_t* dSt = Pt + 2 * kBox;
+
+  const int per_tile = split * B * KV;
+  const int k0 = static_cast<int>(blockIdx.x / per_tile) * kBK;
+  int rem = static_cast<int>(blockIdx.x % per_tile);
+  const int g = rem % KV;
+  rem /= KV;
+  const int b = rem % B;
+  const int hs = rem / B;
+  const int qpk = H / KV, hper = qpk / split;
+  const int h_first = g * qpk + hs * hper;
+
+  // Query tiles that meet the band of this key tile; each head walks them.
+  const int k_last = (k0 + kBK < Skv ? k0 + kBK : Skv) - 1;
+  const int q_min = causal ? k0 : 0;
+  int q_max = Sq - 1;
+  if (window > 0 && static_cast<int64_t>(k_last) + window - 1 < q_max)
+    q_max = k_last + window - 1;
+  const int qt_first = q_min / kBQ;
+  const int n_qt = q_max >= q_min ? q_max / kBQ - qt_first + 1 : 0;
+  const int n_steps = hper * n_qt;
+
+  // Loads Q and dO of step n (head h_first + n / n_qt, query tile
+  // qt_first + n % n_qt) into stage n % kStages by TMA.
+  auto load_step = [&](int n) {
+    const int s = n % kStages;
+    uint8_t* Qs = ring + s * C::kStageBytes;
+    const int h = h_first + n / n_qt;
+    const int row = (qt_first + n % n_qt) * kBQ;
+    sm90::mbar_arrive_expect_tx(&bar_full[s], C::kStageBytes);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      sm90::tma_load_4d(Qs + c * kBox, &tq, &bar_full[s], c * 64, h, row, b);
+      sm90::tma_load_4d(Qs + C::kTile + c * kBox, &tdo, &bar_full[s], c * 64,
+                        h, row, b);
+    }
+  };
+  if (threadIdx.x == 0 && n_steps > 0) {
+    sm90::mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&bar_full[s], 1);
+      released[s] = 0;
+    }
+    sm90::fence_barrier_init();
+    sm90::mbar_arrive_expect_tx(&bar_kv, 2 * C::kTile);
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      sm90::tma_load_4d(Ks + c * kBox, &tk, &bar_kv, c * 64, g, k0, b);
+      sm90::tma_load_4d(Vs + c * kBox, &tv, &bar_kv, c * 64, g, k0, b);
+    }
+    for (int n = 0; n < kStages && n < n_steps; ++n) load_step(n);
+  }
+  __syncthreads();
+
+  // ---- warpgroup cw: query columns 32 cw .. of S^T, dP^T; columns
+  // kNC cw .. of dK, dV, dQ ----------------------------------------------
+  const int cw = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * ((threadIdx.x / 32) % 4) + lane / 4;  // and r0 + 8
+  const int c0 = 2 * (lane % 4);  // first of this thread's column pairs
+
+  // Descriptors: one per operand base, advanced by compile-time offsets (in
+  // 16-byte units, the address field's own). K-major: K, V as the A of
+  // S^T, dP^T (a k-step is 32 bytes along a row; 4 a box); P^T, dS^T as
+  // the A of dV, dK. N-major (and dS^T read M-major as the A of dQ): a
+  // k-step is 16 rows (two atoms); LBO the stride between 64-column boxes.
+  // This warpgroup's columns of a [64 rows][hd] tile start col_off bytes
+  // in: box kNC cw / 64, and at hd 64 half a row into it.
+  const uint32_t col_off = (kNC * cw / 64) * kBox + (kNC * cw % 64) * 2;
+  const uint32_t k_addr = sm90::smem_u32(Ks), v_addr = sm90::smem_u32(Vs);
+  const uint32_t ring_addr = sm90::smem_u32(ring);
+  const uint32_t pt_addr = sm90::smem_u32(Pt), ds_addr = sm90::smem_u32(dSt);
+  const uint64_t k_desc = sm90::desc_b128(k_addr, 16, kAtom);
+  const uint64_t v_desc = sm90::desc_b128(v_addr, 16, kAtom);
+  const uint64_t kn_desc = sm90::desc_b128(k_addr + col_off, kBox, kAtom);
+  constexpr uint32_t kRows16 = (16 * 128) >> 4;  // a 16-row k-step
+
+  // dK, dV: d[i] is key r0 + 8 ((i / 2) % 2), column kNC cw + 8 (i / 4) +
+  // c0 + i % 2. S^T, dP^T: key rows as d, query column 32 cw + 8 (i / 4) +
+  // c0 + i % 2 of the step. dQ (a piece of kQN columns): query row r0 +
+  // 8 ((i / 2) % 2), column 8 (i / 4) + c0 + i % 2 of the piece.
+  float dk[kNC / 2], dv[kNC / 2], sc[16], dp[16], dq[kQN / 2];
+#pragma unroll
+  for (int i = 0; i < kNC / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n_steps > 0) sm90::mbar_wait(&bar_kv, 0);
+  for (int n = 0; n < n_steps; ++n) {
+    const int s = n % kStages, buf = n & 1;
+    const int h = h_first + n / n_qt;
+    const int q0 = (qt_first + n % n_qt) * kBQ;
+    const int qc = q0 + 32 * cw + c0;  // query of pair j: qc + 8 j + {0, 1}
+    // L (log2 units) and D of this thread's eight query columns, read
+    // before the products; L = +inf past Sq makes P = 0 there.
+    const int64_t row_base = (static_cast<int64_t>(b) * H + h) * Sq;
+    float l2[8], dd[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int q = qc + 8 * (e / 2) + e % 2;
+      l2[e] = q < Sq ? lse[row_base + q] * kLog2e : INFINITY;
+      dd[e] = q < Sq ? delta[row_base + q] : 0.f;
+    }
+    sm90::mbar_wait(&bar_full[s], (n / kStages) & 1);
+    const uint32_t q_addr = ring_addr + s * C::kStageBytes;
+    const uint32_t do_addr = q_addr + C::kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T of query rows 32 cw .. 32 cw + 31.
+    const uint64_t qk_desc = sm90::desc_b128(q_addr + 32 * cw * 128, 16, kAtom);
+    const uint64_t dok_desc = sm90::desc_b128(do_addr + 32 * cw * 128, 16, kAtom);
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+      sm90::wgmma_ss_t<32, 0, 0>(sc, k_desc + off, qk_desc + off, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = ((kk / 4) * kBox + (kk % 4) * 32) >> 4;
+      sm90::wgmma_ss_t<32, 0, 0>(dp, v_desc + off, dok_desc + off, kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // P^T and dS^T, masked only where the tile crosses an edge, rounded to
+    // bf16 pairs into this warpgroup's half of the step's tiles.
+    const bool edge = k0 + kBK > Skv || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+    uint8_t* pt = Pt + buf * kBox;
+    uint8_t* dst = dSt + buf * kBox;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int e = 4 * j + 2 * rr;  // pair (e, e + 1), key row r0 + 8 rr
+        const int row = r0 + 8 * rr;
+        float p0 = sm90::exp2_ftz(fmaf(sc[e], scale_log2, -l2[2 * j]));
+        float p1 = sm90::exp2_ftz(fmaf(sc[e + 1], scale_log2, -l2[2 * j + 1]));
+        if (edge) {
+          const int key = k0 + row, q = qc + 8 * j;
+          const bool key_in = key < Skv;
+          if (!(key_in && (!causal || key <= q) && (window == 0 || q - key < window)))
+            p0 = 0.f;
+          if (!(key_in && (!causal || key <= q + 1) &&
+                (window == 0 || q + 1 - key < window)))
+            p1 = 0.f;
+        }
+        const float ds0 = p0 * (dp[e] - dd[2 * j]);
+        const float ds1 = p1 * (dp[e + 1] - dd[2 * j + 1]);
+        const uint32_t off = sm90::swz128(row, 4 * cw + j) + 2 * c0;
+        *reinterpret_cast<uint32_t*>(pt + off) = tc::pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(dst + off) = tc::pack_bf16(ds0, ds1);
+      }
+    sm90::fence_proxy_async();  // the tiles, visible to wgmma
+    __syncthreads();            // both warpgroups' halves are in
+
+    // dV += P^T dO and dK += dS^T Q over the step's 64 query rows, then dQ
+    // = dS K over the tile's 64 keys, a piece of kQN columns at a time.
+    const uint64_t p_desc = sm90::desc_b128(pt_addr + buf * kBox, 16, kAtom);
+    const uint64_t s_desc = sm90::desc_b128(ds_addr + buf * kBox, 16, kAtom);
+    const uint64_t sm_desc = sm90::desc_b128(ds_addr + buf * kBox, kBox, kAtom);
+    const uint64_t don_desc = sm90::desc_b128(do_addr + col_off, kBox, kAtom);
+    const uint64_t qn_desc = sm90::desc_b128(q_addr + col_off, kBox, kAtom);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(dq);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      sm90::wgmma_ss_t<kNC, 0, 1>(dv, p_desc + ((kk * 32) >> 4),
+                                  don_desc + kk * kRows16, 1);
+      sm90::wgmma_ss_t<kNC, 0, 1>(dk, s_desc + ((kk * 32) >> 4),
+                                  qn_desc + kk * kRows16, 1);
+    }
+    // dQ goes out through the step's own stage: once both warpgroups are
+    // done with its Q and dO, each writes its dQ columns there (f32, scaled)
+    // as [64 rows][32 cols] boxes with the 128-byte swizzle, and one thread
+    // adds them into dq_acc by TMA (cp.reduce.async.bulk.tensor .add).
+    uint8_t* stage = ring + s * C::kStageBytes;
+#pragma unroll
+    for (int p = 0; p < kNC / kQN; ++p) {
+      if (p > 0) {
+        sm90::fence_regs(dq);
+        sm90::wgmma_fence();
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        sm90::wgmma_ss_t<kQN, 1, 1>(dq, sm_desc + kk * kRows16,
+                                    kn_desc + ((p * kQN / 64 * kBox) >> 4) + kk * kRows16,
+                                    kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      if (p == 0) {
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        __syncthreads();  // both warpgroups are done with Q and dO of stage s
+      }
+#pragma unroll
+      for (int i = 0; i < kQN / 2; i += 2) {
+        const int row = r0 + 8 * ((i / 2) % 2);
+        const int col = kNC * cw + kQN * p + 8 * (i / 4) + c0;
+        const uint32_t off = (col / 32) * kBox + sm90::swz128(row, (col % 32) / 4) + (col % 4) * 4;
+        *reinterpret_cast<float2*>(stage + off) = make_float2(scale * dq[i], scale * dq[i + 1]);
+      }
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier_sync(1 + cw, 128);  // this warpgroup's dQ is in
+    // Rows past Sq are dropped by the hardware. Once both warpgroups' adds
+    // have read the stage, whichever gets there second refills it with
+    // step n + kStages, so neither waits for the other.
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int box = kNC * cw / 32; box < kNC * (cw + 1) / 32; ++box)
+        sm90::tma_reduce_add_4d(&tdq, stage + box * kBox, box * 32, h, q0, b);
+      sm90::bulk_commit();
+      sm90::bulk_wait_read();
+      if ((atomicAdd(&released[s], 1u) & 1u) && n + kStages < n_steps)
+        load_step(n + kStages);
+    }
+  }
+  if (threadIdx.x % 128 == 0) sm90::bulk_wait();  // the adds are done
+
+  // This head split's dK (scaled) and dV, float32, laid out (split, B,
+  // Skv, KV, hd); zeros where no query tile met the key tile.
+#pragma unroll
+  for (int i = 0; i < kNC / 2; i += 2) {
+    const int key = k0 + r0 + 8 * ((i / 2) % 2);
+    if (key >= Skv) continue;
+    const int64_t at =
+        (((static_cast<int64_t>(hs) * B + b) * Skv + key) * KV + g) * HD +
+        kNC * cw + 8 * (i / 4) + c0;
+    *reinterpret_cast<float2*>(dk_part + at) =
+        make_float2(scale * dk[i], scale * dk[i + 1]);
+    *reinterpret_cast<float2*>(dv_part + at) = make_float2(dv[i], dv[i + 1]);
+  }
+}
+
+}  // namespace tcb
+
 // dq = dq_acc and dk, dv = the sum of the split partials, in T.
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -995,27 +1351,19 @@ flash_attention_bwd_finish_kernel(const float* __restrict__ dq_acc,
   }
 }
 
+// The CUDA-core main body (float32).
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const void* lse, void* dq, void* dk, void* dv,
-           void* delta, void* dq_acc, void* dk_part, void* dv_part, int B,
-           int H, int KV, int64_t Sq, int64_t Skv, int causal, int64_t window,
-           int split, void* stream) {
+int main_cuda_cores(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq_acc, void* dk_part, void* dv_part, int B, int H,
+                    int KV, int64_t Sq, int64_t Skv, int causal,
+                    int64_t window, int split, cudaStream_t s) {
   using C = Cfg<HD>;
-  auto s = static_cast<cudaStream_t>(stream);
-  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
-  const int64_t n_ktiles = (Skv + C::kBK - 1) / C::kBK;
-  const int64_t blocks = n_ktiles * split * B * KV;
-  if ((rows + 7) / 8 > 2147483647 || blocks > 2147483647) return cudaErrorInvalidValue;
-  flash_attention_bwd_prep_kernel<T, HD>
-      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-          static_cast<const T*>(out), static_cast<const T*>(dout),
-          static_cast<float*>(delta), static_cast<float*>(dq_acc), B, H, Sq);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_attention_bwd_kernel<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(C::kSmem));
+  const int64_t blocks = (Skv + C::kBK - 1) / C::kBK * split * B * KV;
+  if (blocks > 2147483647) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bwd_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_attention_bwd_kernel<T, HD>
       <<<static_cast<unsigned>(blocks), kThreads, C::kSmem, s>>>(
@@ -1025,8 +1373,71 @@ int launch(const void* q, const void* k, const void* v, const void* out,
           static_cast<float*>(dq_acc), static_cast<float*>(dk_part),
           static_cast<float*>(dv_part), B, H, KV, Sq, Skv, causal, window,
           split, 1.f / sqrtf(static_cast<float>(HD)));
-  err = cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core main body (bfloat16); the tensor maps are encoded here.
+template <int HD>
+int main_tensor_cores(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq_acc, void* dk_part, void* dv_part, int B,
+                      int H, int KV, int64_t Sq, int64_t Skv, int causal,
+                      int64_t window, int split, cudaStream_t s) {
+  using C = tcb::Cfg<HD>;
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!tc::encode_map(&tq, q, HD, H, Sq, B, tcb::kBQ) ||
+      !tc::encode_map(&tk, k, HD, KV, Skv, B, tcb::kBK) ||
+      !tc::encode_map(&tv, v, HD, KV, Skv, B, tcb::kBK) ||
+      !tc::encode_map(&tdo, dout, HD, H, Sq, B, tcb::kBQ) ||
+      !tc::encode_map(&tdq, dq_acc, HD, H, Sq, B, tcb::kBQ, true))
+    return kErrTensorMap;
+
+  const int64_t blocks = (Skv + tcb::kBK - 1) / tcb::kBK * split * B * KV;
+  if (blocks > 2147483647 || Sq > (1LL << 30) || Skv > (1LL << 30))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      tcb::flash_attention_bwd_tc_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  tcb::flash_attention_bwd_tc_kernel<HD>
+      <<<static_cast<unsigned>(blocks), kThreads, C::kSmem, s>>>(
+          tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+          static_cast<float*>(dk_part), static_cast<float*>(dv_part), B, H, KV,
+          static_cast<int>(Sq), static_cast<int>(Skv), causal,
+          static_cast<int>(window <= 0 ? 0 : window < (1LL << 30) ? window : (1LL << 30)),
+          split, scale,
+          scale * tcb::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Prep, the main body of T, finish.
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
+           void* delta, void* dq_acc, void* dk_part, void* dv_part, int B,
+           int H, int KV, int64_t Sq, int64_t Skv, int causal, int64_t window,
+           int split, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int64_t rows = static_cast<int64_t>(B) * Sq * H;
+  if ((rows + 7) / 8 > 2147483647) return cudaErrorInvalidValue;
+  flash_attention_bwd_prep_kernel<T, HD>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+          static_cast<const T*>(out), static_cast<const T*>(dout),
+          static_cast<float*>(delta), static_cast<float*>(dq_acc), B, H, Sq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int main_err;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    main_err = main_tensor_cores<HD>(q, k, v, dout, lse, delta, dq_acc, dk_part,
+                                     dv_part, B, H, KV, Sq, Skv, causal, window,
+                                     split, s);
+  else
+    main_err = main_cuda_cores<T, HD>(q, k, v, dout, lse, delta, dq_acc,
+                                      dk_part, dv_part, B, H, KV, Sq, Skv,
+                                      causal, window, split, s);
+  if (main_err != 0) return main_err;
   const int64_t n_q = rows * HD;
   const int64_t n_kv = static_cast<int64_t>(B) * Skv * KV * HD;
   const int64_t want = (n_q + n_kv + 255) / 256;
@@ -1060,9 +1471,6 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }
 
 }  // namespace bwd
-
-// Error codes of this library beyond cudaError_t's range.
-constexpr int kErrTensorMap = 100000;
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out,

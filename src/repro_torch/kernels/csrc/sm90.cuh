@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads, cp.async, ldmatrix, the 128-byte swizzle, wgmma shared-memory
-// descriptors and the bf16 wgmma (N 64 and 128) in its two operand forms. Included by the kernel sources under csrc/;
+// loads and reduce-adds, cp.async, ldmatrix, the 128-byte swizzle, wgmma
+// shared-memory descriptors and the bf16 wgmma: both operands from shared
+// memory (N 32, 64, 128, either one transposed: `wgmma_ss_t`), or A from
+// registers (N 64, 128). Included by the kernel sources under csrc/;
 // a change here rebuilds every source that includes it (the build key
 // hashes the local headers a source includes).
 #pragma once
@@ -71,6 +73,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Adds the box at `src` in shared memory into the tensor of `map` at
+// coordinates (c0, c1, c2, c3), element by element in L2 (the map's type:
+// float32 here); elements outside the tensor are dropped. The source must
+// be visible to the async proxy (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// Closes this thread's bulk operations issued so far into a group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until every group of this thread has read its shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until every group of this thread is complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- cp.async, ldmatrix, proxy fence --------------------------------------
@@ -157,14 +186,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
-#define SM90_ACC32(d)                                                       \
+#define SM90_ACC16(d)                                                       \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define SM90_ACC32(d)                                                       \
+  SM90_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31])
 #define SM90_ACC64(d)                                                       \
   SM90_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
       "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
@@ -173,45 +203,56 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_D16                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SM90_D32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define SM90_D64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "  \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "  \
+  "%57, %58, %59, %60, %61, %62, %63}"
 
-// D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), bf16 inputs. A and B
-// are K-major tiles in shared memory. scale_d = 0 overwrites D.
+// D (64 x N, f32) (+)= A (64 x 16) . B (16 x N), bf16 inputs, both operands
+// in shared memory, N in {32, 64, 128}; scale_d = 0 overwrites D.
 // Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane
 // l = t % 32): d[i] is row 16 w + l / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (l % 4) + i % 2.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : SM90_ACC32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// The same with N = 128 (d[i] as above, columns up to 127): half the
-// shared-memory reads of A per flop of two N = 64 products.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t desc_a,
-                                                    uint64_t desc_b,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : SM90_ACC64(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+// 8 (i / 4) + 2 (l % 4) + i % 2 (N / 2 registers). TA = 0: A is K-major (a
+// row's 16 K values contiguous); TA = 1: A is M-major (its 64 M values
+// contiguous: the transpose bit). TB the same for B (TB = 1: N-major, as
+// the rs_tb forms read B). A K-major operand's descriptor has SBO the
+// stride between 8-row groups; an MN-major one that of the rs_tb forms:
+// SBO the stride between 8-row groups along K, LBO the stride between
+// 64-column atoms along M or N. At N = 128 A is read from shared memory
+// half as often per flop as at N = 64.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[N / 2], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "N of wgmma_ss_t");
+  if constexpr (N == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SM90_D16
+        ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : SM90_ACC16(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+  else if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+        ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : SM90_ACC32(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+        ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : SM90_ACC64(d)
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64, bf16),
@@ -238,12 +279,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
                                                        uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : SM90_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
@@ -251,6 +287,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
 
 #undef SM90_ACC64
 #undef SM90_ACC32
+#undef SM90_ACC16
+#undef SM90_D16
 #undef SM90_D32
+#undef SM90_D64
 
 }  // namespace sm90

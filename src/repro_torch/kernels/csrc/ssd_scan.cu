@@ -638,7 +638,7 @@ ssd_scores_kernel(const __nv_bfloat16* __restrict__ Bm, const __nv_bfloat16* __r
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const uint32_t off = (((kk + h) / 4) * kBox + ((kk + h) % 4) * 32) >> 4;
-      sm90::wgmma_m64n64k16_ss(part[h], dc + off, db + off, 0);
+      sm90::wgmma_ss_t<64, 0, 0>(part[h], dc + off, db + off, 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();

@@ -10,27 +10,38 @@ The wrappers only launch: they take contiguous CUDA tensors of one dtype
 else. ``flash_attention_kernel`` is the forward (with ``return_lse`` it
 also returns the rows' log-sum-exp, which the backward needs);
 ``flash_attention_bwd_kernel`` the backward (a prep, a main and a finish
-kernel). Neither records a gradient: `repro_torch.kernels.ops` is the
-entry point, whose autograd Function pairs them on the card and which
-sends CPU tensors to the plain version. ``LAUNCHES`` counts calls of each.
+kernel; ``bwd_plan`` says which main body runs, with how many keys a
+block and which head split). Neither records a gradient:
+`repro_torch.kernels.ops` is the entry point, whose autograd Function
+pairs them on the card and which sends CPU tensors to the plain version.
+``LAUNCHES`` counts calls of each.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "HEAD_DIMS", "flash_attention_kernel", "flash_attention_bwd_kernel"]
+__all__ = [
+    "LAUNCHES", "HEAD_DIMS", "BwdPlan", "bwd_plan", "flash_attention_kernel",
+    "flash_attention_bwd_kernel",
+]
 
 HEAD_DIMS = (64, 128, 256)  # the instances compiled in the source
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
-# Keys a backward block holds (kBK of the source's bwd::Cfg, by head dim).
-BWD_KEYS = {64: 64, 128: 64, 256: 32}
+# The backward's main bodies by input dtype (the source's names), and the
+# keys a block of each holds by head dim (kBK of bwd::tcb and bwd::Cfg).
+BWD_BODIES = {torch.bfloat16: "flash_attention_bwd_tc_kernel",
+              torch.float32: "flash_attention_bwd_kernel"}
+BWD_KEYS = {
+    "flash_attention_bwd_tc_kernel": {64: 64, 128: 64, 256: 64},
+    "flash_attention_bwd_kernel": {64: 64, 128: 64, 256: 32},
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -144,6 +155,25 @@ def head_split(B: int, KV: int, q_per_kv: int, n_key_tiles: int, sms: int) -> in
     return split
 
 
+class BwdPlan(NamedTuple):
+    body: str  # the main kernel's name: by dtype alone
+    keys: int  # keys a block
+    split: int  # parts of each kv head's query heads
+    blocks: int  # the main kernel's grid
+
+
+def bwd_plan(dtype: torch.dtype, B: int, KV: int, q_per_kv: int, Skv: int, hd: int,
+             sms: int) -> BwdPlan:
+    """The backward's launch plan: bf16 runs the tensor-core body and f32
+    the CUDA-core body (no fallback between them), each with its own keys
+    a block, and the head split that fills ``sms`` SMs."""
+    body = BWD_BODIES[dtype]
+    keys = BWD_KEYS[body][hd]
+    n_key_tiles = -(-Skv // keys)
+    split = head_split(B, KV, q_per_kv, n_key_tiles, sms)
+    return BwdPlan(body, keys, split, n_key_tiles * split * B * KV)
+
+
 def flash_attention_bwd_kernel(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, KV, hd)
@@ -173,8 +203,12 @@ def flash_attention_bwd_kernel(
             )
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.dtype == torch.bfloat16:  # the tensor-core body reads these by TMA
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"the tensor-core body needs {name} on a 16-byte boundary")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split = head_split(B, KV, H // KV, -(-Skv // BWD_KEYS[hd]), sms)
+    split = bwd_plan(q.dtype, B, KV, H // KV, Skv, hd, sms).split
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, Sq), **f32)
     dq_acc = torch.empty((B, Sq, H, hd), **f32)

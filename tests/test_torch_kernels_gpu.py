@@ -366,6 +366,10 @@ def _bwd_inputs(B, H, KV, S, hd, dtype, window, device, seed):
         (2, 4, 4, 130, 64, None),
         (1, 16, 8, 1024, 128, None),  # the qwen3-0.6b heads
         (1, 16, 1, 600, 256, 256),  # the recurrentgemma-9b heads
+        (2, 4, 2, 1000, 128, None),  # S not a multiple of a key or query tile
+        (1, 4, 2, 300, 128, 48),  # a window narrower than one key tile
+        (1, 16, 1, 512, 128, None),  # MQA at batch 1: a head split > 1
+        (2, 8, 2, 512, 64, 200),  # hd 64: each warpgroup's columns half a box
     ],
 )
 def test_flash_attention_bwd_kernel_matches_plain_version(cuda, dtype, B, H, KV, S, hd, window):
@@ -385,6 +389,48 @@ def test_flash_attention_bwd_kernel_matches_plain_version(cuda, dtype, B, H, KV,
         assert g_.dtype == w.dtype and g_.shape == w.shape, name
         assert torch.isfinite(g_).all(), name
         assert _normwise(g_, w) <= FA_BWD_TOL[dtype], name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_bwd_kernel_dk_dv_are_the_same_bits_every_run(cuda, hd):
+    """Only dQ is summed by atomics: dK and dV of two calls on the same
+    inputs are equal bit for bit (bf16, the tensor-core body)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+
+    q, k, v, o, do, lse = _bwd_inputs(2, 8, 2, 700, hd, "bfloat16", None, cuda, hd)
+    first = flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True)
+    second = flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert _normwise(first[0], second[0]) <= FA_BWD_TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["q", "k", "v", "dout"])
+def test_flash_attention_bwd_tensor_core_body_refuses_a_misaligned_view(cuda, operand):
+    """A contiguous bf16 view one element past a 16-byte boundary (TMA
+    cannot map it) raises ValueError before any launch, and the context
+    stays usable: the same values at an aligned address then meet the
+    plain version."""
+    from repro_torch.kernels.flash_attention import LAUNCHES as FA
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+
+    args = dict(zip(("q", "k", "v", "out", "dout", "lse"),
+                    _bwd_inputs(1, 4, 2, 200, 128, "bfloat16", None, cuda, 3)))
+    view = _at_offset(args[operand], 1)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = dict(FA)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention_bwd_kernel(**dict(args, **{operand: view}), causal=True)
+    assert FA == before
+    got = flash_attention_bwd_kernel(**dict(args, **{operand: view.clone()}), causal=True)
+    torch.cuda.synchronize()
+    want = t_ref.flash_attention_bwd_ref(
+        *(args[n].transpose(1, 2) for n in ("q", "k", "v", "out", "dout")), args["lse"], True, None
+    )
+    for name, g_, w in zip("qkv", got, want):
+        assert _normwise(g_, w.transpose(1, 2)) <= FA_BWD_TOL["bfloat16"], name
 
 
 @pytest.mark.gpu
