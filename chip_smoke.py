@@ -154,6 +154,28 @@ Phases (any failure raises, exits non-zero and prints no result):
               within 2 ulps of z's dtype; (iii) two one-straggler alive
               masks give the same z+ and (iv) the kernel route the plain
               route's, within 2 x the spread of correct paths.
+10d. MoE and VLM (`phase_moe_vlm`), full width, cut in depth (each cut
+              logged), bf16, random weights from seed 0:
+              serve-phi35 — phi3.5-moe at 16 of 32 layers, batch 4,
+              prompt 2048, 32 new tokens, K3 16 launches a prefill; the
+              kernel path against the plain path layer by layer from the
+              same input (the share of tokens whose top-k expert set
+              differs, those whose drops differ, the normwise gap over
+              the agreeing tokens at SERVE_TOL), one layer's MoE FFN
+              time and share of the prefill; then an f32 model of 2
+              layers, whole prefill kernel vs plain at CARD_VS_CPU_TOL;
+              serve-mixtral — mixtral-8x22b at 8 of 56 layers, batch 1,
+              prompt 8192 (twice the 4096 window: the ring cache wraps),
+              16 new tokens, the same layer-by-layer check;
+              serve-qwen2vl — qwen2-vl-72b at 8 of 80 layers with its
+              vision stub, batch 2, prompt 2048, 16 new tokens, checked as
+              serve-qwen3 (bf16 and f32);
+              train-phi35 — phi3.5-moe at 2 layers, batch 2 x 2048, as
+              train-rg (the routers' gradients among those held), with
+              the MoE FFN's forward and backward times;
+              consensus-phi35 — phase 10c on phi3.5-moe at 1 layer.
+              `[kernels]` holds K3 at the three prefill shapes and its
+              backward at train-phi35's.
 11. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
               prompt 256) and the recurrentgemma smoke config at head
               dim 64 (the smallest K3 takes): prefill
@@ -248,6 +270,11 @@ ATTN_SHAPES = {
     "ragged1000": (4, 1000, 16, 8, 128, None, torch.bfloat16),
     "mqa_hd256": (2, 2048, 16, 1, 256, 2048, torch.bfloat16),
     "hd64_f32": (2, 1000, 8, 2, 64, None, torch.float32),
+    # The prefill steps of [serve-phi35] (GQA 4), [serve-mixtral] (GQA 6,
+    # window 4096 over 8192 tokens) and [serve-qwen2vl] (H 64, GQA 8).
+    "phi35_step": (4, 2048, 32, 8, 128, None, torch.bfloat16),
+    "mixtral_step": (1, 8192, 48, 8, 128, 4096, torch.bfloat16),
+    "qwen2vl_step": (2, 2048, 64, 8, 128, None, torch.bfloat16),
 }
 # K5 shapes: (B, S, W, with h0). The first is recurrentgemma-9b's prefill
 # step of [serve-rg] (the model passes a zero h0).
@@ -267,6 +294,7 @@ ATTN_BWD_SHAPES = {
     "qwen3_train_f32": (4, 2048, 16, 8, 128, None, torch.float32),
     "rg_train": (1, 4096, 16, 1, 256, 2048, torch.bfloat16),
     "hd64": (4, 2048, 16, 8, 64, None, torch.bfloat16),  # the qwen3 step at hd 64
+    "phi35_train": (2, 2048, 32, 8, 128, None, torch.bfloat16),  # [train-phi35]'s step
 }
 SCAN_BWD_SHAPES = {"rg_train": (1, 4096, 4096)}
 # K3's backward: prep, the main body (bf16: the tensor-core body; f32: the
@@ -1853,23 +1881,34 @@ def read_launches(counters) -> dict:
     return {k: v for c in counters for k, v in c.items()}
 
 
-def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
-    """Serve ``arch`` at full size in bf16 through the entry point, with
-    the launch counts read around the run (``per_prefill``: each kernel's
-    launches in the one prefill), then hold the prefill's kernel path
-    against its plain path on the card. Returns the launches."""
+def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names,
+                n_layers=None, f32_cut_layers=None):
+    """Serve ``arch`` at full width in bf16 through the entry point (cut to
+    ``n_layers`` layers when given, the cut logged), with the launch
+    counts read around the run (``per_prefill``: each kernel's launches
+    in the one prefill), then hold the prefill's kernel path against its
+    plain path on the card: the whole prefill in bf16 and widened to f32;
+    for an MoE model layer by layer in bf16 (`moe_layers_kernel_vs_plain`)
+    and, with ``f32_cut_layers``, the whole prefill of a model of that
+    many layers in f32 (`moe_f32_cut`). A vision-stub model's prefills
+    get the serving entry point's stub embeddings. Returns the launches."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.serve import make_prompts, prefill_kwargs, serve
     from repro_torch.models import get_model
 
     cfg = get_config(arch)
+    cut = ""
+    if n_layers is not None:
+        cut = f", depth cut {cfg.n_layers} -> {n_layers} layers, full width"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     seed = 0
     t0 = time.perf_counter()
     model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[{label}] {cfg.name} {cfg.dtype}: {n_params / 1e9:.3f} B parameters "
-        f"initialised on the card in {time.perf_counter() - t0:.2f} s")
+    log(f"[{label}] {cfg.name} {cfg.dtype}{cut}: {n_params / 1e9:.3f} B parameters "
+        f"initialised on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     counters = reset_launches()
     r = serve(model, batch, prompt_len, new_tokens, seed)
     launches = read_launches(counters)
@@ -1886,18 +1925,19 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
         raise AssertionError(f"{label}: tokens {tuple(toks.shape)} out of range")
 
     prompts = make_prompts(cfg.vocab, batch, prompt_len, seed, "cuda")
+    kw = prefill_kwargs(cfg, batch, "cuda")
     result = dict(prefill_s=r["prefill_s"], decode_ms_per_token=r["decode_s_per_tok"] * 1e3,
                   launches=launches)
     with torch.inference_mode():
         # A warm prefill's wall time without the profiler (median of 3,
         # synchronised): the profiled wall below includes the profiler's
         # own host time.
-        logits, cache = model.prefill(prompts, extra_slots=new_tokens)
+        logits, cache = model.prefill(prompts, extra_slots=new_tokens, **kw)
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model.prefill(prompts, extra_slots=new_tokens)
+            model.prefill(prompts, extra_slots=new_tokens, **kw)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         result["warm_prefill_ms"] = float(np.median(walls))
@@ -1906,7 +1946,7 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
         # Where the time goes, warm, under the profiler (which adds host
         # time of its own): one prefill, then three decode steps.
         result["prefill_profile"] = profile_share(
-            lambda: model.prefill(prompts, extra_slots=new_tokens), named=names)
+            lambda: model.prefill(prompts, extra_slots=new_tokens, **kw), named=names)
         tok = logits[:, -1].argmax(-1, keepdim=True)
 
         def decode3():
@@ -1919,6 +1959,25 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
         log(f"[{label}] profile (warm): " + json.dumps(
             {k: result[k] for k in ("prefill_profile", "decode_profile")}))
 
+    if cfg.family == "moe":
+        # bf16 kernel and plain attention round differently, and a token
+        # near a routing tie can then take another expert: hold layer by
+        # layer on the tokens whose routes agree (the weights in f32 do
+        # not fit the card at this depth).
+        moe = moe_layers_kernel_vs_plain(label, model, cfg, prompts, kw, SERVE_TOL)
+        moe["prefill_share"] = cfg.n_layers * moe["ffn_ms"] / result["warm_prefill_ms"]
+        log(f"[{label}] MoE FFN (norm, router, dispatch, expert products, combine) of one "
+            f"layer: {moe['ffn_ms']:.3f} ms, x {cfg.n_layers} layers = "
+            f"{moe['prefill_share'] * 100:.1f}% of the warm prefill")
+        result["moe"] = moe
+        del model
+        torch.cuda.empty_cache()
+        if f32_cut_layers is not None:
+            result["f32_cut"] = moe_f32_cut(label, arch, f32_cut_layers, batch, prompt_len,
+                                            new_tokens)
+        return result
+
+    with torch.inference_mode():
         # The kernel path against the plain path on the same weights: in
         # the served dtype, then widened to float32, where the two must
         # agree at f32 round-off through the whole depth.
@@ -1927,9 +1986,9 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
                 model.to(torch.float32)  # every weight; exact from bf16
             kcfg = dataclasses.replace(cfg, dtype=dtype)
             model.cfg = kcfg
-            logits_k, cache_k = model.prefill(prompts, extra_slots=new_tokens)
+            logits_k, cache_k = model.prefill(prompts, extra_slots=new_tokens, **kw)
             model.cfg = dataclasses.replace(kcfg, attn_impl="plain", ssm_impl="plain")
-            logits_p, cache_p = model.prefill(prompts, extra_slots=new_tokens)
+            logits_p, cache_p = model.prefill(prompts, extra_slots=new_tokens, **kw)
             model.cfg = cfg
             tol = SERVE_TOL if dtype == "bfloat16" else CARD_VS_CPU_TOL
             gap = hold(f"{label} {dtype} prefill logits kernel vs plain", logits_k, logits_p, tol)
@@ -1941,6 +2000,109 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names):
     del model
     torch.cuda.empty_cache()
     return result
+
+
+# A bf16 serving phase's share of routes that the kernel and plain
+# attention may flip (tokens whose top-k expert set differs between the two
+# paths, through one layer from the same input): rounding differences move
+# a token across a near-tie, and PERF.md records the share measured; a
+# wrong kernel moves the attention output by its own size and flips most
+# routes.
+MOE_FLIP_LIMIT = 0.1
+
+
+@torch.inference_mode()
+def moe_layers_kernel_vs_plain(label, model, cfg, prompts, kw, tol):
+    """An MoE model's prefill, layer by layer from the same input: each
+    layer's attention on the kernel path and on the plain path, then the
+    FFN on each. Per layer, the share of tokens whose top-k expert set
+    differs (``flipped``), of tokens with the same set whose slots are kept
+    or dropped differently (``drop_diff``), and the normwise gap of the
+    layer's output over the tokens whose routes agree, held at ``tol``.
+    The kernel path's output feeds the next layer. Also the wall ms of one
+    layer's FFN on the kernel path (CUDA events)."""
+    from repro_torch.models.layers import moe_capacity, moe_route, moe_slots
+    from repro_torch.models.transformer import _ffn, _norm, _positions, _self_attention
+
+    B, S = prompts.shape
+    T, E, k, G = B * S, cfg.n_experts, cfg.experts_per_token, cfg.moe_groups
+    C = moe_capacity(T // G, cfg.capacity_factor, k, E)
+    paths = {impl: dataclasses.replace(cfg, attn_impl=impl) for impl in ("kernel", "plain")}
+    x = model._embed(prompts, kw.get("extra_embeds"))
+    positions = _positions(cfg, B, S, x.device)
+    layers, worst, ffn_ms = [], 0.0, None
+    for l, lp in enumerate(model.layers):
+        out = {}
+        for impl, c in paths.items():
+            xa, _ = _self_attention(c, lp, x, positions)
+            h = _norm(c, xa, lp.ln2, getattr(lp, "ln2_b", None))
+            _, _, idx = moe_route(h.reshape(G, T // G, -1), lp.router, k)
+            _, _, keep = moe_slots(idx, C, E)
+            idx, keep = idx.reshape(T, k), keep.reshape(T, k)
+            order = idx.argsort(-1)
+            y, _ = _ffn(c, lp, xa)
+            out[impl] = (idx.gather(-1, order), keep.gather(-1, order), y.reshape(T, -1))
+            if impl == "kernel" and l == 0:
+                ffn_ms = cuda_ms(lambda: _ffn(c, lp, xa), 5)
+            del xa, h
+        (ik, kk, yk), (ip, kp, yp) = out["kernel"], out["plain"]
+        same_set = (ik == ip).all(-1)
+        agree = same_set & (kk == kp).all(-1)
+        ya, yb = yk[agree].float(), yp[agree].float()
+        gap = normwise_gap(ya, yb)
+        row = dict(layer=l, flipped=1.0 - same_set.float().mean().item(),
+                   drop_diff=(same_set & ~agree).float().mean().item(),
+                   dropped_slots=(~kk).float().mean().item(), agree_gap=gap)
+        layers.append(row)
+        worst = max(worst, gap)
+        if not bool(torch.isfinite(yk).all()) or gap > tol or row["flipped"] > MOE_FLIP_LIMIT:
+            raise AssertionError(f"{label} {cfg.dtype} layer {l}: {row} (tolerance {tol:.0e}, "
+                                 f"flip limit {MOE_FLIP_LIMIT})")
+        x = yk.reshape(B, S, -1)
+        del out, ik, kk, yk, ip, kp, yp, ya, yb
+    flipped = float(np.mean([r["flipped"] for r in layers]))
+    drop_diff = float(np.mean([r["drop_diff"] for r in layers]))
+    log(f"[{label}] {cfg.dtype} layer by layer, kernel vs plain attention from the same input "
+        f"(C = {C} slots an expert): tokens with another expert set {flipped * 100:.3f}% "
+        f"(worst layer {max(r['flipped'] for r in layers) * 100:.3f}%), same set but other "
+        f"drops {drop_diff * 100:.3f}%, slots dropped {layers[0]['dropped_slots'] * 100:.2f}% "
+        f"(layer 0); worst normwise gap over agreeing tokens {worst:.3e} (tolerance {tol:.0e})")
+    return dict(capacity=C, flipped=flipped, drop_diff=drop_diff, worst_agree_gap=worst,
+                layers=layers, ffn_ms=ffn_ms)
+
+
+def moe_f32_cut(label, arch, n_layers, batch, prompt_len, new_tokens):
+    """An f32 model of ``arch`` cut to ``n_layers`` layers (full width,
+    random weights from seed 0): the whole prefill, logits and cache, on
+    the kernel path against the plain path at CARD_VS_CPU_TOL, and the
+    layer-by-layer route comparison (no route should flip at f32
+    round-off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import get_model
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32")
+    model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, 0, "cuda")
+    with torch.inference_mode():
+        logits_k, cache_k = model.prefill(prompts, extra_slots=new_tokens)
+        model.cfg = dataclasses.replace(cfg, attn_impl="plain")
+        logits_p, cache_p = model.prefill(prompts, extra_slots=new_tokens)
+        model.cfg = cfg
+        gap = hold(f"{label} float32 cut prefill logits kernel vs plain", logits_k, logits_p,
+                   CARD_VS_CPU_TOL)
+        cgap = hold_cache(f"{label} float32 cut prefill", cache_k, cache_p, CARD_VS_CPU_TOL)
+        del cache_k, cache_p
+    log(f"[{label}] float32, depth cut {full.n_layers} -> {n_layers} layers: prefill kernel "
+        f"path vs plain path, logits normwise gap {gap:.3e}, worst cache gap {cgap:.3e} "
+        f"(tolerance {CARD_VS_CPU_TOL:.0e})")
+    layers = moe_layers_kernel_vs_plain(f"{label} f32 cut", model, cfg, prompts, {},
+                                        CARD_VS_CPU_TOL)
+    del model
+    torch.cuda.empty_cache()
+    return dict(logits_gap=gap, cache_gap=cgap, flipped=layers["flipped"],
+                worst_agree_gap=layers["worst_agree_gap"])
 
 
 def profile_share(fn, top: int = 5, named=()) -> dict:
@@ -2310,6 +2472,89 @@ def phase_train_rg(steps=5, n_layers=6):
     return result
 
 
+def phase_train_phi35(steps=5, n_layers=2):
+    """phi3.5-moe at full width cut to ``n_layers`` layers (the 32 layers'
+    42 B parameters do not fit one card), bf16, batch 2 x 2048, remat
+    "full": kernel vs plain loss and gradients (the routers' included; K3's
+    forward twice and its backward once a layer), then ``steps`` Adam steps
+    through `launch.train.run_plain`, a profile of one more warm step, and
+    the wall ms of one layer's MoE FFN forward and forward + backward."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import PlainRuntime
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import _ffn, _positions, _self_attention
+
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(full, n_layers=n_layers, remat="full")
+    B, S, L = 2, 2048, n_layers
+    model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(True)
+    log(f"[train-phi35] {cfg.name}: depth cut {full.n_layers} -> {L} layers, full width: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, batch {B} x {S}, "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_token}, capacity factor "
+        f"{cfg.capacity_factor}, remat {cfg.remat}")
+    per_pass = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    result = kernel_vs_plain_training("train-phi35", model, cfg, lm_batch(cfg.vocab, B, S),
+                                      per_pass)
+
+    counters = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    args = SimpleNamespace(lr=3e-4, seed=0, steps=steps, batch=B, seq=S, log_every=1,
+                           ckpt_dir=None, ckpt_every=100)
+    run = train.run_plain(model, args)
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want.update({k: steps * n for k, n in per_pass.items()})
+    if launches != want:
+        raise AssertionError(f"train-phi35: launches {launches}, want {want} ({steps} steps)")
+    losses = run["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train-phi35: losses {losses}")
+    warm = float(np.median(run["step_s"][1:]))
+    log(f"[train-phi35] {steps} steps: losses {json.dumps(losses)}, step s "
+        f"{json.dumps(run['step_s'])}, warm step {warm:.4f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB, launches per step "
+        f"{json.dumps({k: v // steps for k, v in launches.items() if v})}")
+    rt = PlainRuntime(model, lr=3e-4)
+    state, batch = run["state"], lm_batch(cfg.vocab, B, S, seed=1)
+    prof = profile_share(lambda: rt.train_step(state, batch), top=8,
+                         named=K3_KERNELS + K3_BWD_KERNELS)
+    log("[train-phi35] profile of one warm step: " + json.dumps(prof))
+
+    # One layer's MoE FFN on a hidden state of the step's shape: a step runs
+    # it forward twice (remat) and backward once in each layer.
+    lp = model.layers[0]
+    with torch.no_grad():
+        x = model._embed(batch["tokens"])
+        xa = _self_attention(cfg, lp, x, _positions(cfg, B, S, x.device))[0]
+    xa.requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            return _ffn(cfg, lp, xa)
+
+    def fwd_bwd():
+        y, aux = _ffn(cfg, lp, xa)
+        (y.float().sum() + aux).backward()
+
+    fwd_ms, fwd_bwd_ms = cuda_ms(fwd, 3), cuda_ms(fwd_bwd, 3)
+    model.zero_grad(set_to_none=True)
+    share = L * (fwd_ms + fwd_bwd_ms) / (warm * 1e3)
+    log(f"[train-phi35] MoE FFN of one layer: forward {fwd_ms:.3f} ms, forward + backward "
+        f"{fwd_bwd_ms:.3f} ms; x {L} layers (forward, recomputation, backward) = "
+        f"{share * 100:.1f}% of the warm step")
+    result.update(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
+                  launches_per_step={k: v // steps for k, v in launches.items()},
+                  moe_ffn_fwd_ms=fwd_ms, moe_ffn_fwd_bwd_ms=fwd_bwd_ms, moe_step_share=share)
+    del model, run, rt, state, batch, x, xa
+    torch.cuda.empty_cache()
+    return result
+
+
 def consensus_args(**kw):
     """`launch.train`'s consensus arguments (its defaults) at the phases'
     size: A 2, K 4, S 1, cyclic, P_rows 1 (16 rows a step), seq 2048."""
@@ -2329,8 +2574,9 @@ def ulp(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.clamp(u, min=torch.finfo(dtype).tiny)
 
 
-def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5):
-    """csI-ADMM training of ``arch`` at full size through
+def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
+    """csI-ADMM training of ``arch`` at full size (full width and
+    ``n_layers`` layers when given) through
     `launch.train.run_consensus`: ``steps`` incremental steps and one
     parallel step, with launches (``fwd_uses``/``bwd_uses``: each kernel's
     launches in one forward / backward of one agent), step seconds and peak
@@ -2351,9 +2597,14 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5):
     from repro_torch.launch import train
     from repro_torch.models import get_model
 
-    cfg = dataclasses.replace(get_config(arch), remat="full")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, remat="full")
+    cut = ""
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cut = f", depth cut {full.n_layers} -> {n_layers} layers, full width"
     model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
-    log(f"[{label}] {cfg.name} {cfg.dtype}: "
+    log(f"[{label}] {cfg.name} {cfg.dtype}{cut}: "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters; A 2, K 4, S 1, "
         f"cyclic, P_rows 1, seq 2048 (16 rows a step), remat {cfg.remat}")
     result = {}
@@ -2604,6 +2855,33 @@ def phase_card_vs_cpu():
         torch.cuda.empty_cache()
 
 
+def phase_moe_vlm():
+    """The MoE and VLM paths at full width, cut in depth (each cut logged):
+    phi3.5-moe served at 16 of 32 layers (batch 4, prompt 2048, 32 new
+    tokens; an f32 prefill of 2 layers), mixtral-8x22b at 8 of 56 (batch 1,
+    prompt 8192, twice its 4096 window, 16 new tokens), qwen2-vl-72b at 8
+    of 80 with its vision stub (batch 2, prompt 2048, 16 new tokens);
+    phi3.5-moe trained at 2 layers and trained by csI-ADMM at 1 layer.
+    K3 launches once a layer in each prefill."""
+    out = {
+        "serve-phi35": phase_serve("serve-phi35", "phi3.5-moe-42b-a6.6b", 4, 2048, 32,
+                                   {"flash_attention": 16}, K3_KERNELS, n_layers=16,
+                                   f32_cut_layers=2),
+        "serve-mixtral": phase_serve("serve-mixtral", "mixtral-8x22b", 1, 8192, 16,
+                                     {"flash_attention": 8}, K3_KERNELS, n_layers=8),
+        "serve-qwen2vl": phase_serve("serve-qwen2vl", "qwen2-vl-72b", 2, 2048, 16,
+                                     {"flash_attention": 8}, K3_KERNELS, n_layers=8),
+        "train-phi35": phase_train_phi35(),
+    }
+    # One layer: at 2 layers (2.86 B parameters) the parallel run's state
+    # beside the incremental run's, which the checks keep, ran out of the
+    # card's 80 GB (the incremental run alone peaked at 61.6 GiB).
+    out["consensus-phi35"] = phase_consensus(
+        "consensus-phi35", "phi3.5-moe-42b-a6.6b", {"flash_attention": 1},
+        {"flash_attention_bwd": 1}, n_layers=1)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print(
@@ -2653,6 +2931,7 @@ def main() -> int:
     phase_consensus("consensus-mamba2", "mamba2-1.3b", {"ssd_scan": 48}, {})
     phase_consensus("consensus-qwen3", "qwen3-0.6b", {"flash_attention": 28},
                     {"flash_attention_bwd": 28})
+    phase_moe_vlm()
     phase_card_vs_cpu()
     phase_card_vs_cpu_train()
 

@@ -15,20 +15,18 @@ from repro_torch.models.config import ModelConfig
 from .shapes import SHAPES as SHAPES  # re-exported via repro_torch.configs
 
 _ARCH_MODULES = {
+    "mixtral-8x22b": "mixtral_8x22b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "llama3-405b": "llama3_405b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "internlm2-20b": "internlm2_20b",
     "qwen3-0.6b": "qwen3_0_6b",
     "recurrentgemma-9b": "recurrentgemma_9b",
-    "mamba2-1.3b": "mamba2_1_3b",
 }
 # The reference's other archs, and the family each waits for.
-_NOT_PORTED = {
-    "mixtral-8x22b": "moe",
-    "phi3.5-moe-42b-a6.6b": "moe",
-    "llama3-405b": "dense (config not ported)",
-    "stablelm-1.6b": "dense (config not ported)",
-    "qwen2-vl-72b": "vlm",
-    "internlm2-20b": "dense (config not ported)",
-    "whisper-medium": "audio",
-}
+_NOT_PORTED = {"whisper-medium": "audio"}
 
 ARCHS = tuple(_ARCH_MODULES)
 
@@ -37,7 +35,7 @@ def _module(arch: str):
     if arch in _NOT_PORTED:
         raise KeyError(
             f"arch {arch!r} ({_NOT_PORTED[arch]}) is not ported to "
-            f"repro_torch yet: see ROADMAP.md Queue 1, item 15; ported: "
+            f"repro_torch yet: see ROADMAP.md Queue 1, item 15.4; ported: "
             f"{list(ARCHS)}"
         )
     if arch not in _ARCH_MODULES:

@@ -57,7 +57,10 @@ class PlainRuntime:
         }
 
     def prefill_step(self, batch: dict) -> Tuple[torch.Tensor, Any]:
-        return self.model.prefill(batch["tokens"])
+        kwargs = {}
+        if "extra_embeds" in batch:
+            kwargs["extra_embeds"] = batch["extra_embeds"]
+        return self.model.prefill(batch["tokens"], **kwargs)
 
     def serve_step(self, cache: Any, token: torch.Tensor):
         return self.model.decode_step(cache, token)

@@ -4,7 +4,10 @@
 Builds a model with random weights from a seed, prefills a batch of
 random prompts once, then streams greedy decode steps from the KV/state
 cache. On the card the prefill runs the hand-written kernels (flash
-attention for the dense family, the RG-LRU scan for the hybrid one).
+attention for the transformer families, the RG-LRU scan for the hybrid
+one). A vision-stub model (qwen2-vl-72b) gets the reference's stand-in for
+its vision encoder's output (`stub_embeds`) in place of its first 16
+prompt positions.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 2048 --new-tokens 32
@@ -25,7 +28,10 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import get_model
 from repro_torch.models.registry import resolve_device
 
-__all__ = ["make_prompts", "serve", "main"]
+__all__ = ["make_prompts", "stub_embeds", "prefill_kwargs", "serve", "main"]
+
+# Positions of the vision stub's stand-in embeddings (the reference's).
+VISION_STUB_POSITIONS = 16
 
 
 def _sync(device: torch.device) -> None:
@@ -45,17 +51,36 @@ def make_prompts(
     )
 
 
+def stub_embeds(cfg, batch: int, device) -> Optional[torch.Tensor]:
+    """The reference's stand-in for a vision encoder's output, (batch, 16,
+    D) of 0.01 in the model dtype, for a ``vision_stub`` config; None for
+    a text model."""
+    if cfg.modality != "vision_stub":
+        return None
+    shape = (batch, VISION_STUB_POSITIONS, cfg.d_model)
+    return torch.full(shape, 0.01, dtype=cfg.torch_dtype, device=device)
+
+
+def prefill_kwargs(cfg, batch: int, device) -> dict:
+    """``extra_embeds`` for ``prefill`` when the config has a stub, else
+    nothing (the recurrent families' ``prefill`` takes none)."""
+    ee = stub_embeds(cfg, batch, device)
+    return {} if ee is None else {"extra_embeds": ee}
+
+
 @torch.inference_mode()
 def serve(model, batch: int, prompt_len: int, new_tokens: int, seed: int = 0) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens
-    (`make_prompts`), then decode ``new_tokens`` greedily. Returns tokens
+    (`make_prompts`; a vision-stub model's first 16 positions replaced
+    by `stub_embeds`), then decode ``new_tokens`` greedily. Returns tokens
     (batch, new_tokens) on the CPU, ``prefill_s`` and ``decode_s_per_tok``
     (device-synchronised)."""
     dev = model.device
     prompts = make_prompts(model.cfg.vocab, batch, prompt_len, seed, dev)
+    kwargs = prefill_kwargs(model.cfg, batch, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, extra_slots=new_tokens)
+    logits, cache = model.prefill(prompts, extra_slots=new_tokens, **kwargs)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

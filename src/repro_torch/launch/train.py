@@ -37,6 +37,7 @@ from repro_torch.checkpoint import save_step
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import agent_token_streams, make_lm_batch
 from repro_torch.distributed import ConsensusConfig, ConsensusRuntime, PlainRuntime
+from repro_torch.launch.serve import stub_embeds
 from repro_torch.models import get_model, to_reference
 from repro_torch.models.params import flat_to_reference
 from repro_torch.models.registry import resolve_device
@@ -60,6 +61,9 @@ def run_plain(model, args) -> dict:
             key: torch.from_numpy(v).to(dev)
             for key, v in make_lm_batch(stream, args.batch, args.seq).items()
         }
+        ee = stub_embeds(model.cfg, args.batch, dev)
+        if ee is not None:
+            batch["extra_embeds"] = ee
         _sync(dev)
         t0 = time.perf_counter()
         state, metrics = rt.train_step(state, batch)

@@ -6,7 +6,8 @@ loads them) and returns the port's model holding those weights. Both keep
 weights ``(in, out)``, so loading is a slice of the reference's stacked
 arrays per layer and nothing is transposed:
 
-  dense, ssm: layers[name][l]                -> layers[l].<name>
+  dense, moe, vlm, ssm: layers[name][l]      -> layers[l].<name>
+              (an MoE layer's (L, E, ...) experts: the (E, ...) slice)
   hybrid:     rec[name][g, r], attn[name][g],  -> rec[g][r], attn[g],
               tail_rec[name][t]                  tail_rec[t]
 
@@ -98,7 +99,7 @@ def reference_index(model) -> Dict[str, tuple]:
         }
 
     out = own(model, (), (), "")
-    if model.cfg.family in ("dense", "ssm"):
+    if model.cfg.family != "hybrid":
         for l, blk in enumerate(model.layers):
             out.update(own(blk, ("layers",), (l,), f"layers.{l}."))
         return out

@@ -22,7 +22,13 @@ from .transformer import Transformer
 
 __all__ = ["FAMILIES", "get_model", "empty_model", "resolve_device"]
 
-FAMILIES = {"dense": Transformer, "ssm": Mamba2, "hybrid": RecurrentGemma}
+FAMILIES = {
+    "dense": Transformer,
+    "moe": Transformer,
+    "vlm": Transformer,
+    "ssm": Mamba2,
+    "hybrid": RecurrentGemma,
+}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -42,7 +48,7 @@ def empty_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ported: "
-            f"{sorted(FAMILIES)}): see ROADMAP.md Queue 1, item 15"
+            f"{sorted(FAMILIES)}): see ROADMAP.md Queue 1, item 15.4"
         )
     return FAMILIES[cfg.family](cfg, resolve_device(device))
 

@@ -1,13 +1,15 @@
-"""Decoder-only transformer LM, dense family (port of
-`repro.models.transformer`).
+"""Decoder-only transformer LM covering the dense, MoE and VLM-backbone
+configs (port of `repro.models.transformer`).
 
-Trains and serves qwen3-0.6b (and any dense config): ``Transformer`` is an
-``nn.Module`` whose ``layers`` is an ``nn.ModuleList`` of per-layer
-``DenseBlock``s, with
+Trains and serves qwen3-0.6b, llama3-405b, stablelm-1.6b, internlm2-20b
+(dense), phi3.5-moe and mixtral-8x22b (MoE) and qwen2-vl-72b (the VLM
+backbone with its vision stub): ``Transformer`` is an ``nn.Module`` whose
+``layers`` is an ``nn.ModuleList`` of per-layer ``DenseBlock``s, with
 
-  forward(tokens) -> (hidden (B, S, D), moe_aux)   training forward
+  forward(tokens, extra_embeds=None) -> (hidden (B, S, D), moe_aux)
   loss(batch)     -> (loss, metrics)               the reference's loss_fn
-  prefill(tokens, extra_slots=0)  -> (logits of the last position, cache)
+  prefill(tokens, extra_embeds=None, extra_slots=0)
+                  -> (logits of the last position, cache)
   decode_step(cache, token)       -> (logits, cache)
   init_cache(B, seq_len)          -> cache
 
@@ -20,14 +22,22 @@ kernel) or the plain path (``"plain"``: full-matrix, or blocked above
 1024 tokens, as in the reference); decode is plain. ``forward`` runs each
 layer under ``maybe_remat``.
 
+An MoE layer's FFN is `layers.moe_apply` (token-choice top-k with
+per-expert capacity) over the layer's tokens; ``forward`` sums its aux
+loss over the layers and ``loss`` adds ``router_aux_weight`` times it.
+Decode routes its B tokens as one batch of T = B, with that batch's
+capacity (and its drops), as the reference does.
+
+The vision stub (``modality="vision_stub"``): ``extra_embeds`` (B, Sv, D)
+stand for a vision encoder's patch embeddings; projected by ``vis_proj``
+they replace the first Sv token embeddings. Every position, the stub's
+included, takes the text position id on all three M-RoPE channels.
+
 Cache layout (as the reference's): dict(k=(L, B, C, KV, hd), v=..., len)
 with C = min(seq_len, sliding_window), a ring buffer indexed by
 slot = position % C. ``len`` is a Python int here. ``decode_step`` writes
 the new token's K/V into the cache's tensors in place and returns the
 same tensors with ``len + 1``.
-
-The MoE and vision-stub branches are not ported yet (ROADMAP Queue 1,
-item 15) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from .layers import (
     layernorm,
     maybe_remat,
     mlp_apply,
+    moe_apply,
     naive_attention,
     rmsnorm,
 )
@@ -59,21 +70,10 @@ from .losses import lm_loss
 __all__ = ["DenseBlock", "Transformer", "cache_capacity", "_to_ring"]
 
 
-def _unported(cfg: ModelConfig) -> None:
-    cfg.validate()
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "MoE layers (moe_apply) are not ported yet: ROADMAP.md Queue 1, item 15"
-        )
-    if cfg.modality == "vision_stub":
-        raise NotImplementedError(
-            "the vision stub (vis_proj, M-RoPE prefix) is not ported yet: "
-            "ROADMAP.md Queue 1, item 15"
-        )
-
-
 class DenseBlock(ParamModule):
-    """One transformer layer: pre-norm attention + pre-norm gated MLP."""
+    """One transformer layer: pre-norm attention + pre-norm gated MLP, or
+    for the MoE family pre-norm routed experts: ``router`` (D, E),
+    ``w_gate``/``w_up`` (E, D, F), ``w_down`` (E, F, D)."""
 
     def __init__(self, cfg: ModelConfig, device) -> None:
         dt = cfg.torch_dtype
@@ -94,9 +94,16 @@ class DenseBlock(ParamModule):
         if cfg.qk_norm:
             spec["q_norm"] = _const((hd,), 0.0, dt)
             spec["k_norm"] = _const((hd,), 0.0, dt)
-        spec["w_gate"] = _normal((D, F), 0.02, dt)
-        spec["w_up"] = _normal((D, F), 0.02, dt)
-        spec["w_down"] = _normal((F, D), out_scale, dt)
+        if cfg.family == "moe":
+            E = cfg.n_experts
+            spec["router"] = _normal((D, E), 0.02, dt)
+            spec["w_gate"] = _normal((E, D, F), 0.02, dt)
+            spec["w_up"] = _normal((E, D, F), 0.02, dt)
+            spec["w_down"] = _normal((E, F, D), out_scale, dt)
+        else:
+            spec["w_gate"] = _normal((D, F), 0.02, dt)
+            spec["w_up"] = _normal((D, F), 0.02, dt)
+            spec["w_down"] = _normal((F, D), out_scale, dt)
         super().__init__(spec, device)
 
 
@@ -151,8 +158,18 @@ def _self_attention(cfg: ModelConfig, lp, x, positions):
 
 
 def _ffn(cfg: ModelConfig, lp, x):
+    """Pre-norm FFN sub-block: (residual out, the MoE aux loss, or None for
+    a dense layer)."""
+    B, S, D = x.shape
     h = _norm(cfg, x, lp.ln2, getattr(lp, "ln2_b", None))
-    return x + mlp_apply(h, lp, cfg.mlp_act)
+    if cfg.family == "moe":
+        out, aux = moe_apply(
+            h.reshape(B * S, D), lp, cfg.n_experts, cfg.experts_per_token,
+            cfg.capacity_factor, act=cfg.mlp_act, groups=cfg.moe_groups,
+            shard_axis=cfg.moe_shard_axis,
+        )
+        return x + out.reshape(B, S, D), aux
+    return x + mlp_apply(h, lp, cfg.mlp_act), None
 
 
 def cache_capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -173,12 +190,12 @@ def _to_ring(k: torch.Tensor, S: int, C: int) -> torch.Tensor:
 
 
 class Transformer(ParamModule):
-    """Dense decoder-only LM (training and serving). Its own parameters are the
-    embedding, the final norm and the untied head; ``layers`` holds the
-    blocks."""
+    """Decoder-only LM (training and serving). Its own parameters are the
+    embedding, the final norm, the untied head and the vision stub's
+    projector ``vis_proj`` (D, D); ``layers`` holds the blocks."""
 
     def __init__(self, cfg: ModelConfig, device="cuda") -> None:
-        _unported(cfg)
+        cfg.validate()
         dt = cfg.torch_dtype
         D, V = cfg.d_model, cfg.vocab
         spec = {"embed": _normal((V, D), 0.02, dt), "final_norm": _const((D,), 0.0, dt)}
@@ -186,6 +203,8 @@ class Transformer(ParamModule):
             spec["final_norm_b"] = _const((D,), 0.0, dt)
         if not cfg.tie_embeddings:
             spec["lm_head"] = _normal((D, V), 0.02, dt)
+        if cfg.modality == "vision_stub":
+            spec["vis_proj"] = _normal((D, D), 0.02, dt)
         super().__init__(spec, device)
         self.cfg = cfg
         self.layers = nn.ModuleList(
@@ -205,8 +224,20 @@ class Transformer(ParamModule):
 
     # ---- pieces -----------------------------------------------------------
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()]  # (B, S, D)
+    def _embed(self, tokens: torch.Tensor, extra_embeds=None) -> torch.Tensor:
+        x = self.embed[tokens.long()]  # (B, S, D)
+        if extra_embeds is not None:
+            # Modality stub: the projected embeddings replace the leading
+            # positions.
+            ee = extra_embeds.to(x.dtype)
+            if ee.shape[1] > x.shape[1]:
+                raise ValueError(
+                    f"{ee.shape[1]} stub positions do not fit a prompt of {x.shape[1]}"
+                )
+            if self.cfg.modality == "vision_stub":
+                ee = ee @ self.vis_proj
+            x = torch.cat([ee, x[:, ee.shape[1]:]], dim=1)
+        return x
 
     def _final(self, x: torch.Tensor) -> torch.Tensor:
         return _norm(self.cfg, x, self.final_norm, getattr(self, "final_norm_b", None))
@@ -217,29 +248,34 @@ class Transformer(ParamModule):
 
     # ---- training -----------------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(
+        self, tokens: torch.Tensor, extra_embeds=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward: (hidden (B, S, D) after the final norm,
-        moe_aux). Each layer runs under ``maybe_remat``; the dense family's
-        auxiliary loss is 0 (MoE is not ported)."""
+        moe_aux summed over the layers; 0 for a dense model). Each layer
+        runs under ``maybe_remat``."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = self._embed(tokens, extra_embeds)
         positions = _positions(cfg, B, S, x.device)
 
         def block(x, lp):
             x, _ = _self_attention(cfg, lp, x, positions)
             return _ffn(cfg, lp, x)
 
-        for lp in self.layers:
-            x = maybe_remat(lambda u, lp=lp: block(u, lp), cfg.remat)(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in self.layers:
+            x, a = maybe_remat(lambda u, lp=lp: block(u, lp), cfg.remat)(x)
+            if a is not None:
+                aux = aux + a
         return self._final(x), aux
 
     def loss(self, batch: dict) -> Tuple[torch.Tensor, dict]:
         """The reference's loss_fn: mean token NLL (row-weighted when the
         batch has ``loss_weights``) plus ``router_aux_weight * moe_aux``;
-        returns (total, {"nll", "moe_aux"})."""
-        hidden, aux = self.forward(batch["tokens"])
+        returns (total, {"nll", "moe_aux"}). A vision-stub batch may carry
+        ``extra_embeds``."""
+        hidden, aux = self.forward(batch["tokens"], batch.get("extra_embeds"))
         logits = self.logits_from_hidden(hidden)
         loss = lm_loss(logits, batch["labels"], batch.get("loss_weights"))
         total = loss + self.cfg.router_aux_weight * aux
@@ -260,19 +296,20 @@ class Transformer(ParamModule):
 
     @torch.no_grad()
     def prefill(
-        self, tokens: torch.Tensor, extra_slots: int = 0
+        self, tokens: torch.Tensor, extra_embeds=None, extra_slots: int = 0
     ) -> Tuple[torch.Tensor, dict]:
-        """Run the full prompt (B, S); return the last position's logits
+        """Run the full prompt (B, S), its first positions replaced by
+        ``extra_embeds`` when given; return the last position's logits
         (B, 1, V) and the KV cache with ``extra_slots`` of decode headroom."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = self._embed(tokens, extra_embeds)
         positions = _positions(cfg, B, S, x.device)
         cache = self.init_cache(B, S + extra_slots)
         C = cache["k"].shape[2]
         for l, lp in enumerate(self.layers):
             x, (k, v) = _self_attention(cfg, lp, x, positions)
-            x = _ffn(cfg, lp, x)
+            x, _ = _ffn(cfg, lp, x)
             cache["k"][l] = _to_ring(k, S, C)
             cache["v"][l] = _to_ring(v, S, C)
         x = self._final(x)
@@ -303,6 +340,6 @@ class Transformer(ParamModule):
             vc[:, slot] = v[:, 0]
             o = decode_attention(q, kc, vc, valid)
             x = x + o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ lp.wo
-            x = _ffn(cfg, lp, x)
+            x, _ = _ffn(cfg, lp, x)
         x = self._final(x)
         return self.logits_from_hidden(x), {"k": cache["k"], "v": cache["v"], "len": n + 1}

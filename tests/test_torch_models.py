@@ -1,5 +1,5 @@
 """The port's models against the reference's: serving (prefill, decode)
-for the dense, hybrid and ssm families.
+for the dense, MoE, VLM, hybrid and ssm families.
 
 `repro` builds each smoke model and initialises it with
 ``init(jax.random.key(0))``; `repro_torch.models.from_reference` carries
@@ -13,7 +13,10 @@ Pairings: the port's ``"kernel"`` path (the kernels' plain versions on the
 CPU) against the reference's ``"pallas"`` path (Pallas in interpret mode),
 and the port's ``"plain"`` path against the reference's ``"jnp"`` path.
 One case per family has S = 2048 > 1024, so the blocked (online-softmax)
-attention is compared too.
+attention is compared too. The vision-stub model (qwen2-vl) gets the same
+numpy ``extra_embeds`` in both prefills; the MoE smoke configs route
+through ``moe_apply`` (tests/test_torch_moe.py holds its routing bit for
+bit).
 
 Tolerance: the smoke configs are float32 and both sides compute norms,
 RoPE, scores and the recurrence in float32, in different orders, so each
@@ -34,7 +37,6 @@ from repro.models import get_model as r_get_model
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.models import ModelConfig, from_reference, get_model
 from repro_torch.models.registry import empty_model
-from repro_torch.models.transformer import Transformer
 
 RTOL = 1e-5
 DECODE_STEPS = 4
@@ -71,7 +73,8 @@ def _check_cache(cache_r, cache_t, what):
             _close(cache_t[key], cache_r[key], f"{what} cache[{key}]")
 
 
-# (arch, impl, B, S): S = 70 wraps recurrentgemma's 64-slot window ring.
+# (arch, impl, B, S): S = 70 wraps recurrentgemma's and mixtral's 64-slot
+# window rings.
 CASES = [
     ("qwen3-0.6b", "kernel", 2, 24),
     ("qwen3-0.6b", "plain", 2, 24),
@@ -82,6 +85,15 @@ CASES = [
     # S = 70 is ragged against mamba2's 32-step chunk (dt = 0 padding)
     ("mamba2-1.3b", "kernel", 2, 70),
     ("mamba2-1.3b", "plain", 2, 70),
+    ("phi3.5-moe-42b-a6.6b", "kernel", 2, 24),
+    ("phi3.5-moe-42b-a6.6b", "plain", 2, 24),
+    ("mixtral-8x22b", "kernel", 2, 70),
+    ("mixtral-8x22b", "plain", 2, 70),
+    ("qwen2-vl-72b", "kernel", 2, 24),
+    ("qwen2-vl-72b", "plain", 2, 24),
+    ("llama3-405b", "kernel", 2, 24),
+    ("stablelm-1.6b", "plain", 2, 24),
+    ("internlm2-20b", "kernel", 2, 24),
 ]
 
 
@@ -91,8 +103,16 @@ def test_prefill_and_decode_match_reference(arch, impl, B, S):
     rng = np.random.default_rng(S + B)
     vocab = model_t.cfg.vocab
     tokens = rng.integers(0, vocab, (B, S), dtype=np.int32)
-    logits_r, cache_r = model_r.prefill(params, jnp.asarray(tokens), extra_slots=DECODE_STEPS)
-    logits_t, cache_t = model_t.prefill(torch.from_numpy(tokens), extra_slots=DECODE_STEPS)
+    kw_r, kw_t = {}, {}
+    if model_t.cfg.modality == "vision_stub":
+        ee = rng.standard_normal((B, 16, model_t.cfg.d_model)).astype(np.float32)
+        kw_r, kw_t = {"extra_embeds": jnp.asarray(ee)}, {"extra_embeds": torch.from_numpy(ee)}
+    logits_r, cache_r = model_r.prefill(
+        params, jnp.asarray(tokens), extra_slots=DECODE_STEPS, **kw_r
+    )
+    logits_t, cache_t = model_t.prefill(
+        torch.from_numpy(tokens), extra_slots=DECODE_STEPS, **kw_t
+    )
     _close(logits_t, logits_r, "prefill logits")
     _check_cache(cache_r, cache_t, "prefill")
     decode_r = jax.jit(model_r.decode)
@@ -135,21 +155,21 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x22b")
+    """Whisper (the audio family) is all that is left to port; an unknown
+    arch raises too."""
+    from repro.configs import ARCHS as R_ARCHS
+
+    assert set(R_ARCHS) - set(ARCHS) == {"whisper-medium"}
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 15.4"):
+        get_config("whisper-medium")
+    with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 15.4"):
+        get_smoke_config("whisper-medium")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
     audio = ModelConfig(name="a", family="audio", n_layers=1, d_model=8, vocab=8,
                         n_heads=2, n_kv_heads=1, d_ff=8, encoder_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 15.4"):
         empty_model(audio, "cpu")
-    moe = ModelConfig(name="m", family="moe", n_layers=1, d_model=8, vocab=8, n_heads=2,
-                      n_kv_heads=1, d_ff=8, n_experts=2, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Transformer(moe, "cpu")
-    vlm = dataclasses.replace(moe, family="vlm", modality="vision_stub")
-    with pytest.raises(NotImplementedError, match="vision stub"):
-        Transformer(vlm, "cpu")
 
 
 def test_from_reference_rejects_missing_and_extra_arrays():
@@ -190,5 +210,14 @@ def test_init_follows_reference_scales(arch):
         assert abs(blk.conv_w.std().item() - 0.2) < 0.03
     else:
         L = cfg.n_layers
-        assert abs(a.layers[0].wo.std().item() - 0.02 / L**0.5) < 2e-3
-        assert torch.equal(a.layers[0].ln1, torch.zeros_like(a.layers[0].ln1))
+        blk = a.layers[0]
+        assert abs(blk.wo.std().item() - 0.02 / L**0.5) < 2e-3
+        assert torch.equal(blk.ln1, torch.zeros_like(blk.ln1))
+        assert abs(blk.w_down.std().item() - 0.02 / L**0.5) < 2e-3
+        if cfg.family == "moe":
+            E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+            assert tuple(blk.router.shape) == (D, E) and tuple(blk.w_down.shape) == (E, F, D)
+            assert abs(blk.router.std().item() - 0.02) < 3e-3
+        assert hasattr(a, "vis_proj") == (cfg.modality == "vision_stub")
+        if cfg.modality == "vision_stub":
+            assert abs(a.vis_proj.std().item() - 0.02) < 2e-3

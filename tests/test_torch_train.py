@@ -476,12 +476,44 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    """An arch whose family is not ported (MoE) raises naming ROADMAP, in
-    either mode; without a card the default device raises."""
+    """An arch whose family is not ported (Whisper, the audio family)
+    raises naming ROADMAP, in either mode; without a card the default
+    device raises."""
     for mode in ("plain", "consensus"):
         with pytest.raises(KeyError, match="ROADMAP"):
-            train.main(["--arch", "mixtral-8x22b", "--smoke", "--steps", "1",
+            train.main(["--arch", "whisper-medium", "--smoke", "--steps", "1",
                          "--device", "cpu", "--mode", mode])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-vl-72b"])
+def test_train_cli_trains_moe_and_vlm(arch, monkeypatch, capsys):
+    """The plain mode of the CLI on the MoE and VLM smoke configs: the
+    vision stub's stand-in embeddings ((batch, 16, D) of 0.01, the
+    reference's) reach every training batch, an MoE model's loss carries
+    its router aux loss."""
+    from repro_torch.models.transformer import Transformer
+
+    seen = []
+    loss = Transformer.loss
+
+    def recording_loss(self, batch):
+        total, metrics = loss(self, batch)
+        seen.append((batch.get("extra_embeds"), metrics["moe_aux"].item()))
+        return total, metrics
+
+    monkeypatch.setattr(Transformer, "loss", recording_loss)
+    out = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                      "--batch", "2", "--seq", "32", "--log-every", "1"])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert f"training {arch} (smoke) on cpu mode=plain remat=full" in capsys.readouterr().out
+    cfg = out["model"].cfg
+    assert len(seen) == 2
+    for ee, aux in seen:
+        if arch == "qwen2-vl-72b":
+            assert torch.equal(ee, torch.full((2, 16, cfg.d_model), 0.01))
+            assert aux == 0.0
+        else:
+            assert ee is None and aux > 0

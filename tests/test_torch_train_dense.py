@@ -1,5 +1,6 @@
-"""Training of the dense (qwen3) and hybrid (recurrentgemma) families in the
-port against the reference's, on the CPU.
+"""Training of the dense (qwen3), hybrid (recurrentgemma), MoE (phi3.5-moe,
+mixtral) and VLM (qwen2-vl, with its vision stub) families in the port
+against the reference's, on the CPU.
 
 - ``Transformer.loss`` and ``RecurrentGemma.loss`` and every parameter's
   gradient against ``jax.value_and_grad`` of the reference's ``loss_fn``
@@ -11,7 +12,10 @@ port against the reference's, on the CPU.
   attribute ``jnp`` of `repro.models.{transformer,rglru,layers,losses}`
   replaced by a view of ``jax.numpy`` whose ``float32`` is ``float64``
   (no file of `repro` is changed), as tests/test_torch_train.py does for
-  mamba2;
+  mamba2; the MoE and VLM smoke models the same way, their ``moe_aux``
+  (the routers' load-balance loss, part of the total) relative 1e-12, an
+  MoE case at capacity factor 1.0 so that tokens are dropped, and the
+  vision stub's ``extra_embeds`` in the batch;
 - the in-place clipping and Adam step that `PlainRuntime` takes, bit
   for bit the functional ones (which tests/test_torch_train.py holds to
   the reference);
@@ -80,7 +84,7 @@ def _normwise(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _batch(vocab, B, S, seed, weights):
+def _batch(vocab, B, S, seed, weights, stub_width=None):
     rng = np.random.default_rng(seed)
     batch = {
         "tokens": rng.integers(0, vocab, (B, S), dtype=np.int32),
@@ -89,6 +93,8 @@ def _batch(vocab, B, S, seed, weights):
     batch["labels"][0, :5] = -100  # ignored positions
     if weights:
         batch["loss_weights"] = rng.random(B)
+    if stub_width is not None:
+        batch["extra_embeds"] = rng.standard_normal((B, 16, stub_width))
     return batch
 
 
@@ -107,11 +113,13 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("weights,remat,impl", CASES)
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-9b"])
-def test_loss_and_gradients_match_jax_grad_f64(reference_in_f64, arch, weights, remat, impl):
-    # S = 80 > the hybrid smoke window (64): the window masks keys.
-    cfg_r = dataclasses.replace(r_smoke_config(arch), dtype="float64", remat=remat)
+def _loss_and_gradients(arch, weights, remat, impl, **overrides):
+    """(port's loss, metrics, {name: grad}; reference's loss, metrics,
+    {name: grad}) on one batch at float64."""
+    # S = 80 > the hybrid and mixtral smoke windows (64): the window masks keys.
+    cfg_r = dataclasses.replace(
+        r_smoke_config(arch), dtype="float64", remat=remat, **overrides
+    )
     model_r = r_get_model(cfg_r)
     params = jax.tree.map(lambda a: a.astype(jnp.float64), model_r.init(jax.random.key(3)))
     cfg_t = dataclasses.replace(
@@ -119,18 +127,61 @@ def test_loss_and_gradients_match_jax_grad_f64(reference_in_f64, arch, weights, 
     )
     model_t = from_reference(cfg_t, jax.tree.map(np.asarray, params), "cpu")
     model_t.to(torch.float64).requires_grad_(True)  # the RG-LRU's f32 gate params too
-    batch = _batch(cfg_t.vocab, 2, 80, seed=5, weights=weights)
+    stub = cfg_t.d_model if cfg_t.modality == "vision_stub" else None
+    batch = _batch(cfg_t.vocab, 2, 80, seed=5, weights=weights, stub_width=stub)
     (loss_r, aux_r), grads_r = jax.value_and_grad(model_r.loss, has_aux=True)(
         params, {k: jnp.asarray(v) for k, v in batch.items()}
     )
     loss_t, metrics = model_t.loss({k: torch.from_numpy(v) for k, v in batch.items()})
     loss_t.backward()
+    return loss_t, metrics, _grads_as_reference(model_t), loss_r, aux_r, _flat(grads_r)
+
+
+@pytest.mark.parametrize("weights,remat,impl", CASES)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "recurrentgemma-9b"])
+def test_loss_and_gradients_match_jax_grad_f64(reference_in_f64, arch, weights, remat, impl):
+    loss_t, metrics, got, loss_r, aux_r, want = _loss_and_gradients(arch, weights, remat, impl)
     assert loss_t.dtype == torch.float64
     assert abs(loss_t.item() - float(loss_r)) <= 1e-12 * abs(float(loss_r))
     assert abs(metrics["nll"].item() - float(aux_r["nll"])) <= 1e-12 * abs(float(loss_r))
     assert float(metrics["moe_aux"]) == float(aux_r["moe_aux"]) == 0.0
-    got, want = _grads_as_reference(model_t), _flat(grads_r)
     assert set(got) == set(want)
+    for name, g in want.items():
+        assert _normwise(got[name], g) <= 1e-9, name
+
+
+# (arch, weights, remat, the port's impl, capacity factor or None for the
+# config's): the MoE archs on both routes, one case with drops; the VLM
+# backbone with its vision stub.
+MOE_VLM_CASES = [
+    ("phi3.5-moe-42b-a6.6b", False, "none", "kernel", None),
+    ("phi3.5-moe-42b-a6.6b", True, "full", "plain", 1.0),
+    ("mixtral-8x22b", True, "full", "kernel", None),
+    ("mixtral-8x22b", False, "none", "plain", None),
+    ("qwen2-vl-72b", False, "full", "kernel", None),
+    ("qwen2-vl-72b", True, "none", "plain", None),
+]
+
+
+@pytest.mark.parametrize("arch,weights,remat,impl,capacity", MOE_VLM_CASES)
+def test_moe_and_vlm_loss_and_gradients_match_jax_grad_f64(
+    reference_in_f64, arch, weights, remat, impl, capacity
+):
+    """Loss (total, nll, moe_aux) and every gradient, the routers' and
+    ``vis_proj``'s included, against ``jax.value_and_grad``."""
+    overrides = {} if capacity is None else {"capacity_factor": capacity}
+    loss_t, metrics, got, loss_r, aux_r, want = _loss_and_gradients(
+        arch, weights, remat, impl, **overrides
+    )
+    assert loss_t.dtype == torch.float64
+    assert abs(loss_t.item() - float(loss_r)) <= 1e-12 * abs(float(loss_r))
+    assert abs(metrics["nll"].item() - float(aux_r["nll"])) <= 1e-12 * abs(float(loss_r))
+    aux = float(aux_r["moe_aux"])
+    assert abs(metrics["moe_aux"].item() - aux) <= 1e-12 * max(abs(aux), 1e-30)
+    assert (aux > 0) == arch.startswith(("phi", "mixtral"))
+    assert set(got) == set(want)
+    routed = [n for n in want if n.endswith(("router", "vis_proj"))]
+    assert routed and all(np.abs(_np64(want[n])).max() > 0 for n in routed)
     for name, g in want.items():
         assert _normwise(got[name], g) <= 1e-9, name
 
