@@ -173,16 +173,35 @@ Phases (any failure raises, exits non-zero and prints no result):
               train-phi35 — phi3.5-moe at 2 layers, batch 2 x 2048, as
               train-rg (the routers' gradients among those held), with
               the MoE FFN's forward and backward times;
-              consensus-phi35 — phase 10c on phi3.5-moe at 1 layer.
+              consensus-phi35 — phase 10c on phi3.5-moe at 2 layers, the
+              incremental run's state and the checks' copies on the host
+              while the card holds the rest.
               `[kernels]` holds K3 at the three prefill shapes and its
               backward at train-phi35's.
+10e. Whisper (`phase_whisper`), whisper-medium at full size (24 + 24
+              layers, 1,500 stand-in frames a row), bf16, seed 0; no
+              kernel runs on its path (its attention is the plain path,
+              as in the reference), and every phase asserts zero launches:
+              serve-whisper — batch 8, prompt 192, 64 new tokens, with
+              the warm prefill, decode and their profiles;
+              train-whisper — 5 Adam steps through the training entry
+              point at batch 8 x 448 (remat "full"), peak memory and a
+              warm-step profile; then remat "dots" against "full" (loss
+              and gradients of one step, printed bit for bit or by their
+              gap; 2 warm Adam steps each with peak memory), on Whisper
+              and on qwen3-0.6b at 4 x 2048 (K3 forward 56, backward 28
+              under both);
+              consensus-whisper — phase 10c at 16 rows of 448 tokens with
+              frames.
 11. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
-              prompt 256) and the recurrentgemma smoke config at head
-              dim 64 (the smallest K3 takes): prefill
+              prompt 256), the recurrentgemma smoke config at head
+              dim 64 (the smallest K3 takes) and whisper-medium at full
+              width with 2 + 2 layers in f32 (batch 1, 1,500 random
+              frames, prompt 128): prefill
               and 3 decode steps on the card (kernels) held against the
               port on the CPU (plain versions), logits and caches; and
-              3 training steps of the mamba2 smoke config in f32, losses
-              and final parameters.
+              3 training steps of the mamba2 and whisper smoke configs in
+              f32, losses and final parameters.
 
 Not in the default run (it needs several cards): ``phase_multi_card()``,
 the sharded tier over every card of the host against one card.
@@ -1977,6 +1996,14 @@ def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names,
                                             new_tokens)
         return result
 
+    if cfg.family == "audio":
+        # Whisper's attention is the plain path on either route (as in the
+        # reference): there is no kernel path to hold against it.
+        log(f"[{label}] no kernel route: attn_impl changes nothing for {cfg.family}")
+        del model
+        torch.cuda.empty_cache()
+        return result
+
     with torch.inference_mode():
         # The kernel path against the plain path on the same weights: in
         # the served dtype, then widened to float32, where the two must
@@ -2574,14 +2601,22 @@ def ulp(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.clamp(u, min=torch.finfo(dtype).tiny)
 
 
-def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
+def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None, seq=2048):
     """csI-ADMM training of ``arch`` at full size (full width and
     ``n_layers`` layers when given) through
     `launch.train.run_consensus`: ``steps`` incremental steps and one
     parallel step, with launches (``fwd_uses``/``bwd_uses``: each kernel's
     launches in one forward / backward of one agent), step seconds and peak
-    memory. Then, from the final state, one more incremental step checked
-    on the card:
+    memory; ``seq`` tokens a row (an audio-stub model's rows carry the
+    launcher's stand-in frames too). When the incremental run's peak and a
+    second state would not fit the card together, that state waits on the
+    host while the parallel run holds the card, and the checks keep their
+    copies (the committing agent's x and y, each z+) on the host, bringing
+    one leaf at a time back to compare; the f32 step of the spread then
+    runs from a state whose agents share the committing agent's x and y
+    (all that z+ reads). Then, from the
+    incremental run's final state, one more incremental step checked on
+    the card:
     (i)   the agent that does not commit keeps x and y bit for bit;
     (ii)  z+ - z = (1/A) [(x_a+ - x_a) - (y_a+ - y_a) / rho], recomputed in
           f64 from the saved tensors, within the rounding of the f32
@@ -2606,7 +2641,7 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
     model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
     log(f"[{label}] {cfg.name} {cfg.dtype}{cut}: "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters; A 2, K 4, S 1, "
-        f"cyclic, P_rows 1, seq 2048 (16 rows a step), remat {cfg.remat}")
+        f"cyclic, P_rows 1, seq {seq} (16 rows a step), remat {cfg.remat}")
     result = {}
     for mode, n_steps, fwd, bwd in (("incremental", steps, 3, 1), ("parallel", 1, 4, 2)):
         # incremental: the committing agent's forward, its recomputation and
@@ -2614,7 +2649,8 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
         # both agents forward, recompute and backward.
         counters = reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        out = train.run_consensus(model, consensus_args(steps=n_steps, consensus_mode=mode))
+        out = train.run_consensus(
+            model, consensus_args(steps=n_steps, consensus_mode=mode, seq=seq))
         launches = read_launches(counters)
         peak = torch.cuda.max_memory_allocated()
         want = {k: 0 for k in launches}
@@ -2633,19 +2669,36 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
                             launches_per_step={k: v // n_steps for k, v in launches.items()})
         if mode == "incremental":
             rt, state = out["runtime"], out["state"]
+            state_bytes = sum(t.numel() * t.element_size()
+                              for key in ("x", "y", "z") for t in state[key].values())
+            host = peak + state_bytes > torch.cuda.get_device_properties(0).total_memory
+            log(f"[{label}] state {state_bytes / 2**30:.2f} GiB beside the run's peak: "
+                f"{'to the host' if host else 'kept on the card'} for the parallel run")
+            if host:  # off the card while the parallel run holds its own state
+                t0 = time.perf_counter()
+                for key in ("x", "y", "z"):
+                    state[key] = {n: t.cpu() for n, t in state[key].items()}
+                log(f"[{label}] incremental state to the host: "
+                    f"{time.perf_counter() - t0:.2f} s")
         del out
+        torch.cuda.empty_cache()
+    for key in ("x", "y", "z"):
+        state[key] = {n: t.cuda() for n, t in state[key].items()}
+
+    def park(tensors: dict) -> dict:
+        return {n: t.cpu() for n, t in tensors.items()} if host else tensors
 
     # One more incremental step from the same state, four ways.
     A = rt.cfg.n_agents
     batch_np, alive1 = next(train.consensus_batches(
-        consensus_args(seed=1, steps=1), rt.cfg.code(), cfg.vocab))
+        consensus_args(seed=1, steps=1, seq=seq), rt.cfg.code(), cfg.vocab, cfg))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     alive2 = np.roll(alive1, 1, axis=1)  # another ECN straggles, one per agent
     active = state["k"] % A  # (k + 1 - 1) mod A
     other = (active + 1) % A
     X, Y, Z, rho = state["x"], state["y"], state["z"], rt.cfg.rho
-    xa = {n: t[active].clone() for n, t in X.items()}
-    ya = {n: t[active].clone() for n, t in Y.items()}
+    xa = park({n: t[active].clone() for n, t in X.items()})
+    ya = park({n: t[active].clone() for n, t in Y.items()})
 
     def step(impl, alive, dtype=cfg.dtype):
         """z+ of the step on route ``impl`` with the model in ``dtype``; the
@@ -2654,7 +2707,7 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
         model.cfg = dataclasses.replace(cfg, attn_impl=impl, ssm_impl=impl, dtype=dtype)
         new, _ = rt.train_step(state, batch, alive)
         model.cfg = cfg
-        return new["z"]
+        return park(new["z"])
 
     def put_back():
         for n in X:
@@ -2662,7 +2715,7 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
             Y[n][active].copy_(ya[n])
 
     def worst_gap(got, want):
-        return max((normwise_gap(got[n], want[n]), n) for n in want)
+        return max((normwise_gap(got[n].cuda(), want[n].cuda()), n) for n in want)
 
     # (i), (ii) on the kernel route.
     x_other = {n: t[other].cpu() for n, t in X.items()}
@@ -2675,14 +2728,19 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
     del x_other, y_other
     off, worst = 0.0, (0.0, "")
     eps32 = torch.finfo(torch.float32).eps
+    chunk = 1 << 26  # elements a pass: bounds the f64 temporaries
     for n in Z:
-        xn, xo, yn, yo = (t.double() for t in (X[n][active], xa[n], Y[n][active], ya[n]))
-        want = Z[n].double() + ((xn - xo) - (yn - yo) / rho) / A
-        err = (z1[n].double() - want).abs()
-        terms = (xn.abs() + xo.abs() + (yn.abs() + yo.abs()) / rho) / A
-        worst = max(worst, ((err / (2 * ulp(want, z1[n].dtype) + 4 * eps32 * terms)).max().item(), n))
-        off = max(off, (err / ulp(want, z1[n].dtype)).max().item())
-        del xn, xo, yn, yo, want, err, terms
+        flat = [t.cuda().reshape(-1)
+                for t in (X[n][active], xa[n], Y[n][active], ya[n], Z[n], z1[n])]
+        for i in range(0, flat[0].numel(), chunk):
+            xn, xo, yn, yo, zo, zn = (t[i:i + chunk].double() for t in flat)
+            want = zo + ((xn - xo) - (yn - yo) / rho) / A
+            err = (zn - want).abs()
+            terms = (xn.abs() + xo.abs() + (yn.abs() + yo.abs()) / rho) / A
+            u = ulp(want, z1[n].dtype)
+            worst = max(worst, ((err / (2 * u + 4 * eps32 * terms)).max().item(), n))
+            off = max(off, (err / u).max().item())
+            del xn, xo, yn, yo, zo, zn, want, err, terms, u
     if worst[0] > 1:
         raise AssertionError(f"{label} (ii): z+ off the recomputed update by {worst[0]:.2f} x "
                              f"its rounding bound at {worst[1]}")
@@ -2697,7 +2755,20 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
     put_back()
     dtypes = param_dtypes(model)
     model.to(torch.float32)
+    if host:
+        # z+ of an incremental step reads the committing agent's x and y
+        # only (the other agent's x feeds its forward's metrics): here both
+        # agents share those slices, and the whole x and y wait on the host.
+        whole = {key: {n: t.cpu() for n, t in d.items()} for key, d in (("x", X), ("y", Y))}
+        for d, mine in ((X, xa), (Y, ya)):
+            for n in d:
+                d[n] = mine[n].to("cuda", copy=True)[None].expand(A, *mine[n].shape)
     z_plain32 = step("plain", alive1, "float32")
+    if host:
+        for key, d in (("x", X), ("y", Y)):
+            for n in d:
+                d[n] = whole[key][n].cuda()
+        del whole
     put_back()
     restore_dtypes(model, dtypes)
     spread, spread_at = worst_gap(z_plain, z_plain32)
@@ -2720,6 +2791,141 @@ def phase_consensus(label, arch, fwd_uses, bwd_uses, steps=5, n_layers=None):
     del rt, state, X, Y, Z, xa, ya, model
     torch.cuda.empty_cache()
     return result
+
+
+def remat_comparison(label, model, cfg, batch, per_pass, steps=2):
+    """``remat="dots"`` against ``"full"`` on one model: the loss and every
+    parameter's gradient of one loss + backward from the same weights and
+    batch (bit for bit expected: the saved products are the forward's own,
+    and the recomputation repeats the rest; the worst normwise gap is
+    printed beside and held at TRAIN_TOL of the model's dtype), with each kernel's launches (``per_pass``, the same
+    under both policies: "dots" recomputes the kernels' outputs), then
+    ``steps`` Adam steps under each from one optimizer state, with their
+    warm step seconds and peak device memory."""
+    from repro_torch.distributed import PlainRuntime
+
+    got = {}
+    for remat in ("dots", "full"):
+        c = dataclasses.replace(cfg, remat=remat)
+        loss, grads, launches, seconds = loss_and_grads(model, c, batch)
+        want = {k: 0 for k in launches}
+        want.update(per_pass)
+        if launches != want:
+            raise AssertionError(f"{label} remat {remat}: launches {launches}, want {want}")
+        got[remat] = (loss, grads)
+        log(f"[{label}] remat {remat}: loss {loss.item():.6f}, loss + backward {seconds:.3f} s, "
+            f"launches {launches}")
+    (ld, gd), (lf, gf) = got.pop("dots"), got.pop("full")
+    same = bool(torch.equal(ld, lf)) and all(torch.equal(gd[n], gf[n]) for n in gf)
+    gap, at = grad_gap(gd, gf)
+    loss_gap = abs(ld.item() - lf.item()) / abs(lf.item())
+    del gd, gf
+    result = dict(bit_for_bit=same, loss_gap=loss_gap, grad_gap=gap, grad_gap_at=at)
+    log(f"[{label}] remat dots vs full, one loss + backward: bit for bit {same}; loss "
+        f"relative gap {loss_gap:.3e}, worst parameter gradient gap {gap:.3e} at {at}")
+    tol = TRAIN_TOL[cfg.dtype]["grad"]
+    if not np.isfinite(ld.item()) or gap > tol:
+        raise AssertionError(f"{label}: remat dots vs full beyond {tol:.0e}")
+    rt = PlainRuntime(model, lr=3e-4)
+    state = rt.init_state()
+    for remat in ("dots", "full"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        for _ in range(steps + 1):  # the first step warms the policy's path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = rt.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not np.isfinite(metrics["loss"].item()):
+            raise AssertionError(f"{label} remat {remat}: loss {metrics['loss'].item()}")
+        warm = float(np.median(step_s[1:]))
+        log(f"[{label}] remat {remat}: {steps} warm Adam steps {json.dumps(step_s[1:])} s "
+            f"(median {warm:.4f} s), peak device memory {peak / 2**30:.2f} GiB")
+        result[remat] = dict(warm_step_s=warm, step_s=step_s[1:], peak_bytes=peak)
+    model.cfg = cfg
+    del rt, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_whisper(steps=5):
+    """whisper-medium at full size (24 + 24 layers), bf16, batch 8 x 448
+    tokens with the launcher's 1,500 stand-in frames a row, remat "full":
+    ``steps`` Adam steps through the training entry point (no kernel
+    launches: Whisper's attention is the plain path), peak memory and a
+    profile of one warm step; then ``remat="dots"`` against ``"full"``
+    (`remat_comparison`) on Whisper and on qwen3-0.6b at [train-qwen3]'s
+    batch 4 x 2048, where K3 and its backward run under both policies.
+    "none" is not run for Whisper: its saved encoder attention
+    probabilities alone (f32, 8 x 16 x 1500 x 1500 a layer, 24 layers)
+    take 27.6 GB, and the whole step was reckoned past 70 GiB."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import PlainRuntime
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import stub_embeds
+    from repro_torch.models import get_model
+
+    cfg = dataclasses.replace(get_config("whisper-medium"), remat="full")
+    B, S = 8, 448
+    counters = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.main(["--arch", "whisper-medium", "--batch", str(B), "--seq", str(S),
+                      "--steps", str(steps), "--log-every", "1", "--seed", "0"])
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise AssertionError(f"train-whisper: launches {launches}, want none")
+    losses = run["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train-whisper: losses {losses}")
+    model = run["model"]
+    held = sum(p.numel() for p in model.parameters())
+    warm = float(np.median(run["step_s"][1:]))
+    log(f"[train-whisper] {cfg.name}: {held / 1e9:.3f} B parameters held ({cfg.param_count():,} "
+        f"by the reference's count, which leaves out dec_pos), batch {B} x {S} + "
+        f"{cfg.encoder_positions} frames, remat {cfg.remat}; {steps} steps: losses "
+        f"{json.dumps(losses)}, step s {json.dumps(run['step_s'])}, warm step {warm:.4f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB, no kernel launches")
+    batch = lm_batch(cfg.vocab, B, S, seed=1)
+    batch["extra_embeds"] = stub_embeds(cfg, B, "cuda")
+    rt, state = PlainRuntime(model, lr=3e-4), run["state"]
+    prof = profile_share(lambda: rt.train_step(state, batch), top=8)
+    log("[train-whisper] profile of one warm step: " + json.dumps(prof))
+    result = dict(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof)
+    del run, rt, state
+    torch.cuda.empty_cache()
+    result["remat"] = remat_comparison("train-whisper", model, cfg, batch, {})
+    del model, batch
+    torch.cuda.empty_cache()
+
+    qcfg = dataclasses.replace(get_config("qwen3-0.6b"), remat="full")
+    L = qcfg.n_layers
+    qwen = get_model(qcfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    qwen.requires_grad_(True)
+    per_pass = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+    result["qwen3_remat"] = remat_comparison("train-qwen3 remat", qwen, qcfg,
+                                             lm_batch(qcfg.vocab, 4, 2048), per_pass)
+    del qwen
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_whisper():
+    """whisper-medium at full size in bf16, random weights from seed 0:
+    serve-whisper (batch 8, 1,500 stand-in frames, prompt 192, 64 new
+    tokens; no kernel launches), train-whisper (`phase_train_whisper`) and
+    consensus-whisper (phase 10c at seq 448 with frames; no kernel
+    launches, so check (iv) compares the plain route with itself)."""
+    return {
+        "serve-whisper": phase_serve("serve-whisper", "whisper-medium", 8, 192, 64, {}, ()),
+        "train-whisper": phase_train_whisper(),
+        "consensus-whisper": phase_consensus("consensus-whisper", "whisper-medium", {}, {},
+                                             seq=448),
+    }
 
 
 def phase_train_mamba2_tc_diagnostic(seeds=(0, 1)):
@@ -2771,45 +2977,54 @@ def phase_train_mamba2_tc_diagnostic(seeds=(0, 1)):
 
 
 def phase_card_vs_cpu_train():
-    """The mamba2 smoke config in f32: 3 training steps on the card (K4)
-    against the same steps on the CPU (plain version), same weights and
-    batches; losses (relative) and final parameters (normwise: Adam moves
-    an element whose f32 gradient is round-off by up to lr per step on
-    either side, so 1e-4 at lr 1e-3)."""
+    """The mamba2 and whisper smoke configs in f32: 3 training steps on the
+    card (K4 for mamba2; no kernel for whisper, whose batches carry random
+    frames) against the same steps on the CPU (plain versions), same
+    weights and batches; losses (relative) and final parameters
+    (normwise: Adam moves an element whose f32 gradient is round-off by up
+    to lr per step on either side, so 1e-4 at lr 1e-3)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import agent_token_streams, make_lm_batch
     from repro_torch.distributed import PlainRuntime
     from repro_torch.models import get_model
 
-    cfg = get_smoke_config("mamba2-1.3b")
-    cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
-    gpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).to("cuda")
-    rt_c, rt_g = PlainRuntime(cpu, lr=1e-3), PlainRuntime(gpu, lr=1e-3)
-    st_c, st_g = rt_c.init_state(), rt_g.init_state()
-    stream = agent_token_streams(1, cfg.vocab, seed=2)[0]
-    counters = reset_launches()
-    worst = 0.0
-    for step in range(3):
-        batch = {k: torch.from_numpy(v) for k, v in make_lm_batch(stream, 2, 96).items()}
-        st_c, m_c = rt_c.train_step(st_c, batch)
-        st_g, m_g = rt_g.train_step(st_g, {k: v.cuda() for k, v in batch.items()})
-        for key in ("loss", "grad_norm"):
-            gap = abs(m_g[key].item() - m_c[key].item()) / abs(m_c[key].item())
-            worst = max(worst, gap)
-            if gap > 1e-5:
-                raise AssertionError(f"mamba2 smoke step {step} {key}: gap {gap:.3e} > 1e-5")
-    launches = read_launches(counters)
-    if launches["ssd_scan"] == 0:
-        raise AssertionError("mamba2 smoke: the card run launched no ssd_scan")
-    pgap = max(
-        hold(f"mamba2 smoke {n}", pg.detach(), pc.detach().cuda(), CARD_VS_CPU_TOL)
-        for (n, pg), (_, pc) in zip(gpu.named_parameters(), cpu.named_parameters())
-    )
-    log(f"[card-vs-cpu] mamba2 smoke, 3 training steps (f32): launches {launches}, worst "
-        f"loss/grad-norm relative gap {worst:.3e} (tolerance 1e-5), worst parameter "
-        f"normwise gap {pgap:.3e} (tolerance {CARD_VS_CPU_TOL:.0e})")
-    del gpu
-    torch.cuda.empty_cache()
+    for arch, kernel in (("mamba2-1.3b", "ssd_scan"), ("whisper-medium", None)):
+        cfg = get_smoke_config(arch)
+        label = f"{arch.split('-')[0]} smoke"
+        cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        gpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).to("cuda")
+        rt_c, rt_g = PlainRuntime(cpu, lr=1e-3), PlainRuntime(gpu, lr=1e-3)
+        st_c, st_g = rt_c.init_state(), rt_g.init_state()
+        stream = agent_token_streams(1, cfg.vocab, seed=2)[0]
+        rng = np.random.default_rng(3)
+        counters = reset_launches()
+        worst = 0.0
+        for step in range(3):
+            batch = {k: torch.from_numpy(v) for k, v in make_lm_batch(stream, 2, 96).items()}
+            if cfg.modality == "audio_stub":
+                batch["extra_embeds"] = torch.from_numpy(rng.standard_normal(
+                    (2, cfg.encoder_positions, cfg.d_model)).astype(np.float32))
+            st_c, m_c = rt_c.train_step(st_c, batch)
+            st_g, m_g = rt_g.train_step(st_g, {k: v.cuda() for k, v in batch.items()})
+            for key in ("loss", "grad_norm"):
+                gap = abs(m_g[key].item() - m_c[key].item()) / abs(m_c[key].item())
+                worst = max(worst, gap)
+                if gap > 1e-5:
+                    raise AssertionError(f"{label} step {step} {key}: gap {gap:.3e} > 1e-5")
+        launches = read_launches(counters)
+        if kernel is not None and launches[kernel] == 0:
+            raise AssertionError(f"{label}: the card run launched no {kernel}")
+        if kernel is None and any(launches.values()):
+            raise AssertionError(f"{label}: launches {launches}, want none")
+        pgap = max(
+            hold(f"{label} {n}", pg.detach(), pc.detach().cuda(), CARD_VS_CPU_TOL)
+            for (n, pg), (_, pc) in zip(gpu.named_parameters(), cpu.named_parameters())
+        )
+        log(f"[card-vs-cpu] {label}, 3 training steps (f32): launches {launches}, worst "
+            f"loss/grad-norm relative gap {worst:.3e} (tolerance 1e-5), worst parameter "
+            f"normwise gap {pgap:.3e} (tolerance {CARD_VS_CPU_TOL:.0e})")
+        del gpu, cpu, rt_g, rt_c, st_g, st_c
+        torch.cuda.empty_cache()
 
 
 def phase_card_vs_cpu():
@@ -2826,16 +3041,26 @@ def phase_card_vs_cpu():
         "recurrentgemma smoke (hd 64)": (
             dataclasses.replace(get_smoke_config("recurrentgemma-9b"), head_dim=64), 2, 96,
         ),
+        # 1,500 random frames; Whisper launches no kernel
+        "whisper-medium (2 + 2 layers, f32)": (
+            dataclasses.replace(get_config("whisper-medium"), n_layers=2, encoder_layers=2,
+                                dtype="float32"), 1, 128,
+        ),
     }
     for label, (cfg, B, S) in cases.items():
         cpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
         gpu = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).to("cuda")
         rng = np.random.default_rng(2)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+        kw_c = {}
+        if cfg.modality == "audio_stub":
+            kw_c["extra_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder_positions, cfg.d_model)).astype(np.float32))
+        kw_g = {k: v.cuda() for k, v in kw_c.items()}
         counters = reset_launches()
         with torch.inference_mode():
-            lg, cg = gpu.prefill(tokens.cuda(), extra_slots=3)
-            lc, cc = cpu.prefill(tokens, extra_slots=3)
+            lg, cg = gpu.prefill(tokens.cuda(), extra_slots=3, **kw_g)
+            lc, cc = cpu.prefill(tokens, extra_slots=3, **kw_c)
             worst = hold(f"{label} prefill logits", lg, lc.cuda(), CARD_VS_CPU_TOL)
             worst = max(worst, hold_cache(f"{label} prefill", cg, cc, CARD_VS_CPU_TOL))
             for step in range(3):
@@ -2845,13 +3070,16 @@ def phase_card_vs_cpu():
                 worst = max(worst, hold(f"{label} decode {step}", lg, lc.cuda(), CARD_VS_CPU_TOL))
             worst = max(worst, hold_cache(f"{label} after decode", cg, cc, CARD_VS_CPU_TOL))
         launches = read_launches(counters)
-        kernels = ("flash_attention",) if cfg.family == "dense" else ("flash_attention", "rglru_scan")
+        kernels = {"dense": ("flash_attention",), "hybrid": ("flash_attention", "rglru_scan"),
+                   "audio": ()}[cfg.family]
         for kernel in kernels:
             if launches[kernel] == 0:
                 raise AssertionError(f"{label}: the card run launched no {kernel}")
+        if not kernels and any(launches.values()):
+            raise AssertionError(f"{label}: launches {launches}, want none")
         log(f"[card-vs-cpu] {label}: B {B} S {S}, launches {launches}, worst normwise "
             f"gap {worst:.3e} (tolerance {CARD_VS_CPU_TOL:.0e})")
-        del gpu, cg
+        del gpu, cg, kw_g
         torch.cuda.empty_cache()
 
 
@@ -2861,7 +3089,7 @@ def phase_moe_vlm():
     tokens; an f32 prefill of 2 layers), mixtral-8x22b at 8 of 56 (batch 1,
     prompt 8192, twice its 4096 window, 16 new tokens), qwen2-vl-72b at 8
     of 80 with its vision stub (batch 2, prompt 2048, 16 new tokens);
-    phi3.5-moe trained at 2 layers and trained by csI-ADMM at 1 layer.
+    phi3.5-moe trained at 2 layers, plainly and by csI-ADMM.
     K3 launches once a layer in each prefill."""
     out = {
         "serve-phi35": phase_serve("serve-phi35", "phi3.5-moe-42b-a6.6b", 4, 2048, 32,
@@ -2873,12 +3101,13 @@ def phase_moe_vlm():
                                      {"flash_attention": 8}, K3_KERNELS, n_layers=8),
         "train-phi35": phase_train_phi35(),
     }
-    # One layer: at 2 layers (2.86 B parameters) the parallel run's state
-    # beside the incremental run's, which the checks keep, ran out of the
-    # card's 80 GB (the incremental run alone peaked at 61.6 GiB).
+    # Two layers (2.86 B parameters): the incremental run's state waits on
+    # the host during the parallel run, and the checks keep their copies
+    # there (with both runs' states, or the copies, on the card it ran out
+    # of its 80 GB; `phase_consensus` decides from the measured peak).
     out["consensus-phi35"] = phase_consensus(
-        "consensus-phi35", "phi3.5-moe-42b-a6.6b", {"flash_attention": 1},
-        {"flash_attention_bwd": 1}, n_layers=1)
+        "consensus-phi35", "phi3.5-moe-42b-a6.6b", {"flash_attention": 2},
+        {"flash_attention_bwd": 2}, n_layers=2)
     return out
 
 
@@ -2932,6 +3161,7 @@ def main() -> int:
     phase_consensus("consensus-qwen3", "qwen3-0.6b", {"flash_attention": 28},
                     {"flash_attention_bwd": 28})
     phase_moe_vlm()
+    phase_whisper()
     phase_card_vs_cpu()
     phase_card_vs_cpu_train()
 

@@ -1,9 +1,8 @@
 """Architecture registry of the port (``get_config``, ``get_smoke_config``).
 
 Counterpart of `repro.configs.registry` without the dry-run's abstract
-input specs. ``ARCHS`` lists the ported archs only; an arch that the
-reference has but the port does not yet raises ``KeyError`` naming
-ROADMAP's queue.
+input specs. ``ARCHS`` lists every arch of the reference; an unknown
+arch raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -24,20 +23,13 @@ _ARCH_MODULES = {
     "internlm2-20b": "internlm2_20b",
     "qwen3-0.6b": "qwen3_0_6b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-medium": "whisper_medium",
 }
-# The reference's other archs, and the family each waits for.
-_NOT_PORTED = {"whisper-medium": "audio"}
 
 ARCHS = tuple(_ARCH_MODULES)
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise KeyError(
-            f"arch {arch!r} ({_NOT_PORTED[arch]}) is not ported to "
-            f"repro_torch yet: see ROADMAP.md Queue 1, item 15.4; ported: "
-            f"{list(ARCHS)}"
-        )
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")

@@ -7,7 +7,8 @@ cache. On the card the prefill runs the hand-written kernels (flash
 attention for the transformer families, the RG-LRU scan for the hybrid
 one). A vision-stub model (qwen2-vl-72b) gets the reference's stand-in for
 its vision encoder's output (`stub_embeds`) in place of its first 16
-prompt positions.
+prompt positions; an audio-stub model (whisper-medium) gets the
+reference's stand-in frames for its encoder.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --batch 4 --prompt-len 2048 --new-tokens 32
@@ -52,12 +53,16 @@ def make_prompts(
 
 
 def stub_embeds(cfg, batch: int, device) -> Optional[torch.Tensor]:
-    """The reference's stand-in for a vision encoder's output, (batch, 16,
-    D) of 0.01 in the model dtype, for a ``vision_stub`` config; None for
-    a text model."""
-    if cfg.modality != "vision_stub":
+    """The reference's stand-ins, 0.01 in the model dtype: a vision
+    encoder's output (batch, 16, D) for a ``vision_stub`` config, the audio
+    frontend's frames (batch, encoder_positions, D) for an ``audio_stub``
+    one; None for a text model."""
+    if cfg.modality == "vision_stub":
+        shape = (batch, VISION_STUB_POSITIONS, cfg.d_model)
+    elif cfg.modality == "audio_stub":
+        shape = (batch, cfg.encoder_positions, cfg.d_model)
+    else:
         return None
-    shape = (batch, VISION_STUB_POSITIONS, cfg.d_model)
     return torch.full(shape, 0.01, dtype=cfg.torch_dtype, device=device)
 
 
@@ -71,10 +76,9 @@ def prefill_kwargs(cfg, batch: int, device) -> dict:
 @torch.inference_mode()
 def serve(model, batch: int, prompt_len: int, new_tokens: int, seed: int = 0) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens
-    (`make_prompts`; a vision-stub model's first 16 positions replaced
-    by `stub_embeds`), then decode ``new_tokens`` greedily. Returns tokens
-    (batch, new_tokens) on the CPU, ``prefill_s`` and ``decode_s_per_tok``
-    (device-synchronised)."""
+    (`make_prompts`) with the model's `stub_embeds`, then decode
+    ``new_tokens`` greedily. Returns tokens (batch, new_tokens) on the
+    CPU, ``prefill_s`` and ``decode_s_per_tok`` (device-synchronised)."""
     dev = model.device
     prompts = make_prompts(model.cfg.vocab, batch, prompt_len, seed, dev)
     kwargs = prefill_kwargs(model.cfg, batch, dev)

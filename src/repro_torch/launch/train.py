@@ -80,12 +80,18 @@ def run_plain(model, args) -> dict:
     return {"losses": losses, "step_s": step_s, "state": state, "model": model}
 
 
-def consensus_batches(args, code, vocab: int):
+def consensus_batches(args, code, vocab: int, cfg=None):
     """The reference's host side of consensus training, step by step:
     yields (batch of numpy arrays in coded allocation order, (A, K) alive
     mask). Each agent samples K partitions of P rows from its own stream
     and lays partition t out on every ECN whose support holds it; then up
-    to S of each agent's ECNs straggle (``default_rng(seed + 7)``)."""
+    to S of each agent's ECNs straggle (``default_rng(seed + 7)``).
+
+    For an ``audio_stub`` ``cfg`` the batch also carries the stand-in
+    frames, one (encoder_positions, D) block of 0.01 per token row, in
+    float32 (the model casts them to its dtype). The reference's launcher
+    leaves them out and its Whisper loss then raises ``KeyError``; its
+    runtime takes them in the batch, as here."""
     A, K, S = args.agents, args.ecns, args.stragglers
     sup = [code.support(j) for j in range(K)]
     streams = agent_token_streams(A, vocab, seed=args.seed)
@@ -99,6 +105,9 @@ def consensus_batches(args, code, vocab: int):
                 for t in sup[j]:
                     rows.append(parts[t])
         batch = {key: np.concatenate([r[key] for r in rows], axis=0) for key in rows[0]}
+        if cfg is not None and cfg.modality == "audio_stub":
+            shape = (batch["tokens"].shape[0], cfg.encoder_positions, cfg.d_model)
+            batch["extra_embeds"] = np.full(shape, 0.01, np.float32)
         alive = np.ones((A, K), bool)
         for a in range(A):  # straggler event: drop up to S random ECNs
             dead = rng.choice(K, size=S, replace=False)
@@ -124,7 +133,8 @@ def run_consensus(model, args) -> dict:
     state = rt.init_state()
     dev = model.device
     losses, residuals, step_s, alives = [], [], [], []
-    for k, (batch, alive) in enumerate(consensus_batches(args, ccfg.code(), model.cfg.vocab)):
+    for k, (batch, alive) in enumerate(consensus_batches(
+            args, ccfg.code(), model.cfg.vocab, model.cfg)):
         tb = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
         _sync(dev)
         t0 = time.perf_counter()
@@ -183,7 +193,9 @@ def main(argv: Optional[list] = None) -> dict:
     model = get_model(cfg, device=device, generator=gen)
     print(
         f"training {args.arch} ({'smoke' if args.smoke else 'full'}) on "
-        f"{device} mode={args.mode} remat={cfg.remat} params={cfg.param_count():,}"
+        f"{device} mode={args.mode} remat={cfg.remat} params={cfg.param_count():,} "
+        f"(the reference's analytic count; the model holds "
+        f"{sum(p.numel() for p in model.parameters()):,})"
     )
     out = run_plain(model, args) if args.mode == "plain" else run_consensus(model, args)
     first, last = out["losses"][0], out["losses"][-1]

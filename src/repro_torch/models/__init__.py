@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense and hybrid families' serving paths and
-the ssm family (mamba2), which also trains (``nn.Module``s over PyTorch,
+"""Model zoo of the port: every family of `repro` (dense, MoE, VLM, ssm,
+hybrid, audio), serving and training (``nn.Module``s over PyTorch,
 kernels through `repro_torch.kernels`)."""
 
 from .config import ModelConfig

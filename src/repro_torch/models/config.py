@@ -77,7 +77,8 @@ class ModelConfig:
     attn_block_kv: int = 1024
     tie_embeddings: bool = False
     # activation checkpointing of the layers (training path only):
-    #   none | full (recompute each layer from its input) | dots (raises)
+    #   none | full (recompute each layer from its input) | dots (keep the
+    #   outputs of the matrix products, recompute the rest)
     remat: str = "none"
     # "kernel" (hand-written CUDA kernels) or "plain" (PyTorch paths)
     attn_impl: str = "kernel"

@@ -459,27 +459,44 @@ def causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     return (out + b.to(ct)).to(seq.dtype)
 
 
+def _save_products(ctx, func, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of 2-d matrix products
+    (``x @ W`` on an (B, S, D) activation reaches ``aten.mm``), recompute
+    everything else, batched products (``bmm``) and the kernels' launches
+    included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def maybe_remat(fn, remat: str):
     """Wrap a per-layer function in activation checkpointing per the
     config policy (the reference's ``jax.checkpoint`` of the layer scan).
 
     "none" keeps every activation; "full" keeps only the layer's inputs
     and recomputes the layer in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant). "dots" (keep matmul
-    outputs) is not ported: it raises, naming ROADMAP.md Queue 1, item 15.
+    (``torch.utils.checkpoint``, non-reentrant); "dots" keeps the outputs
+    of the matrix products without batch dimensions and recomputes the
+    rest (selective checkpointing with `_save_products`, the counterpart
+    of ``dots_with_no_batch_dims_saveable``). The reference's kernels are
+    not dots, so their outputs are recomputed under "dots" as under
+    "full".
     """
     if remat == "none":
         return fn
-    if remat == "full":
-        from torch.utils.checkpoint import checkpoint
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    from functools import partial
 
-        def remat_fn(*args):
-            return checkpoint(fn, *args, use_reentrant=False)
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-        return remat_fn
+    kwargs = {}
     if remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" (save matmul outputs) is not ported yet: ROADMAP.md '
-            'Queue 1, item 15; use "full" or "none"'
-        )
-    raise ValueError(f"unknown remat policy {remat!r}")
+        kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, _save_products)
+
+    def remat_fn(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return remat_fn

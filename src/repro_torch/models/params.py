@@ -10,6 +10,7 @@ arrays per layer and nothing is transposed:
               (an MoE layer's (L, E, ...) experts: the (E, ...) slice)
   hybrid:     rec[name][g, r], attn[name][g],  -> rec[g][r], attn[g],
               tail_rec[name][t]                  tail_rec[t]
+  audio:      enc[name][l], dec[name][l]       -> enc[l].<name>, dec[l].<name>
 
 Every parameter of the port must be set and every array of the tree
 used, or it raises. ``to_reference(model)`` is the inverse: the
@@ -99,6 +100,11 @@ def reference_index(model) -> Dict[str, tuple]:
         }
 
     out = own(model, (), (), "")
+    if model.cfg.family == "audio":
+        for stack in ("enc", "dec"):
+            for l, blk in enumerate(getattr(model, stack)):
+                out.update(own(blk, (stack,), (l,), f"{stack}.{l}."))
+        return out
     if model.cfg.family != "hybrid":
         for l, blk in enumerate(model.layers):
             out.update(own(blk, ("layers",), (l,), f"layers.{l}."))

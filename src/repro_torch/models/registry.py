@@ -4,7 +4,8 @@
 ``get_model(cfg, device=..., generator=...)`` returns the family's
 ``nn.Module`` with its weights drawn on ``device`` from ``generator``
 (a fresh ``torch.Generator`` seeded 0 when None). Every model has
-``prefill(tokens, extra_slots=0)``, ``decode_step(cache, token)`` and
+``prefill(tokens, extra_slots=0)`` (Whisper's takes its frames as
+``extra_embeds``), ``decode_step(cache, token)`` and
 ``init_cache(B, seq_len)``, and trains: ``forward(tokens)`` and
 ``loss(batch)``.
 """
@@ -19,6 +20,7 @@ from .config import ModelConfig
 from .mamba2 import Mamba2
 from .rglru import RecurrentGemma
 from .transformer import Transformer
+from .whisper import Whisper
 
 __all__ = ["FAMILIES", "get_model", "empty_model", "resolve_device"]
 
@@ -28,6 +30,7 @@ FAMILIES = {
     "vlm": Transformer,
     "ssm": Mamba2,
     "hybrid": RecurrentGemma,
+    "audio": Whisper,
 }
 
 
@@ -47,8 +50,7 @@ def empty_model(cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
     """The family's module with uninitialised weights on ``device``."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ported: "
-            f"{sorted(FAMILIES)}): see ROADMAP.md Queue 1, item 15.4"
+            f"unknown model family {cfg.family!r} (known: {sorted(FAMILIES)})"
         )
     return FAMILIES[cfg.family](cfg, resolve_device(device))
 

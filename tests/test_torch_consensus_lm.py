@@ -5,7 +5,9 @@ tests/test_torch_consensus.py).
 - two ``train_step``s of every ported arch's smoke model (float32) in
   both modes (the MoE models' router aux loss in the objective, the
   vision-stub model with the reference's stand-in embeddings in its
-  batch), from one state carried across
+  batch, Whisper with the stand-in frames that the launcher's
+  ``consensus_batches`` adds, as tests/test_consensus_all_archs.py hands
+  them to the reference's runtime), from one state carried across
   (`repro_torch.models.params.consensus_state_from_reference`), on the
   same coded batches and alive masks (`repro_torch.launch.train.
   consensus_batches`, held bit for bit to the reference's launcher in
@@ -80,7 +82,8 @@ def _args(**kw):
 # ---- train_step against the reference, on the LM smoke models ---------------
 
 ARCHS = ["qwen3-0.6b", "recurrentgemma-9b", "mamba2-1.3b", "phi3.5-moe-42b-a6.6b",
-         "mixtral-8x22b", "qwen2-vl-72b", "llama3-405b", "stablelm-1.6b", "internlm2-20b"]
+         "mixtral-8x22b", "qwen2-vl-72b", "llama3-405b", "stablelm-1.6b", "internlm2-20b",
+         "whisper-medium"]
 
 
 def _check_state(model, state_t, state_r, tol, steps, rho_gamma):
@@ -122,7 +125,12 @@ def test_train_step_matches_reference(arch, mode):
     rt_t = ConsensusRuntime(model_t, ConsensusConfig(**ccfg))
     state_t = consensus_state_from_reference(model_t, jax.tree.map(np.asarray, state_r))
     step_r = jax.jit(rt_r.train_step)
-    for batch, alive in train.consensus_batches(args, rt_t.cfg.code(), cfg_r.vocab):
+    cfg_t = model_t.cfg
+    for batch, alive in train.consensus_batches(args, rt_t.cfg.code(), cfg_r.vocab, cfg_t):
+        if cfg_r.modality == "audio_stub":
+            rows = batch["tokens"].shape[0]
+            assert np.array_equal(batch["extra_embeds"], np.full(
+                (rows, cfg_r.encoder_positions, cfg_r.d_model), 0.01, np.float32))
         if cfg_r.modality == "vision_stub":
             rows = batch["tokens"].shape[0]
             batch["extra_embeds"] = np.full((rows, 16, cfg_r.d_model), 0.01, np.float32)

@@ -164,7 +164,11 @@ def test_tc_rounding_model_meets_the_bf16_bound(monkeypatch, B, H, KV, S, hd, wi
         assert m.dtype == torch.float32 and w.dtype == torch.float64, name
         assert np.asarray(wr).dtype == np.float64, name
         # The two exact gradients agree to f64 round-off, which dS = P (dP - D)
-        # amplifies by its cancellation (1.6e-10 seen; threaded sums vary).
+        # amplifies by its cancellation. Measured 4.7e-16 to 6.9e-16 normwise
+        # over these cases, the same bits on one thread, on eight and under
+        # torch.use_deterministic_algorithms; a reading of 1.6e-10 seen once
+        # before was never reproduced, so no cause is shown for it and the
+        # bound stays where it was.
         assert _normwise(w, np.asarray(wr)) <= 1e-8, name
         gap = _normwise(m, w)
         assert gap <= ATTN_BWD_TOL_BF16, (name, gap)

@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                     "distributed.consensus", "configs.phi35_moe",
                     "configs.mixtral_8x22b", "configs.qwen2_vl_72b",
                     "configs.llama3_405b", "configs.stablelm_1_6b",
-                    "configs.internlm2_20b"):
+                    "configs.internlm2_20b", "models.whisper",
+                    "configs.whisper_medium"):
             assert "repro_torch." + mod in names, mod
         print(len(names))
         """

@@ -13,8 +13,9 @@ Pairings: the port's ``"kernel"`` path (the kernels' plain versions on the
 CPU) against the reference's ``"pallas"`` path (Pallas in interpret mode),
 and the port's ``"plain"`` path against the reference's ``"jnp"`` path.
 One case per family has S = 2048 > 1024, so the blocked (online-softmax)
-attention is compared too. The vision-stub model (qwen2-vl) gets the same
-numpy ``extra_embeds`` in both prefills; the MoE smoke configs route
+attention is compared too. The vision-stub model (qwen2-vl) and the
+audio-stub model (whisper, whose attention is the plain path on either
+route) get the same numpy ``extra_embeds`` in both prefills; the MoE smoke configs route
 through ``moe_apply`` (tests/test_torch_moe.py holds its routing bit for
 bit).
 
@@ -94,6 +95,8 @@ CASES = [
     ("llama3-405b", "kernel", 2, 24),
     ("stablelm-1.6b", "plain", 2, 24),
     ("internlm2-20b", "kernel", 2, 24),
+    ("whisper-medium", "kernel", 2, 24),
+    ("whisper-medium", "plain", 1, 2048),
 ]
 
 
@@ -104,8 +107,10 @@ def test_prefill_and_decode_match_reference(arch, impl, B, S):
     vocab = model_t.cfg.vocab
     tokens = rng.integers(0, vocab, (B, S), dtype=np.int32)
     kw_r, kw_t = {}, {}
-    if model_t.cfg.modality == "vision_stub":
-        ee = rng.standard_normal((B, 16, model_t.cfg.d_model)).astype(np.float32)
+    stub = {"vision_stub": 16, "audio_stub": model_t.cfg.encoder_positions}
+    if model_t.cfg.modality in stub:
+        ee = rng.standard_normal(
+            (B, stub[model_t.cfg.modality], model_t.cfg.d_model)).astype(np.float32)
         kw_r, kw_t = {"extra_embeds": jnp.asarray(ee)}, {"extra_embeds": torch.from_numpy(ee)}
     logits_r, cache_r = model_r.prefill(
         params, jnp.asarray(tokens), extra_slots=DECODE_STEPS, **kw_r
@@ -155,21 +160,19 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_and_families_raise():
-    """Whisper (the audio family) is all that is left to port; an unknown
-    arch raises too."""
+    """Every arch of the reference is ported; an unknown arch or family
+    raises."""
     from repro.configs import ARCHS as R_ARCHS
 
-    assert set(R_ARCHS) - set(ARCHS) == {"whisper-medium"}
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 15.4"):
-        get_config("whisper-medium")
-    with pytest.raises(KeyError, match="ROADMAP.md Queue 1, item 15.4"):
-        get_smoke_config("whisper-medium")
+    assert set(R_ARCHS) == set(ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
-    audio = ModelConfig(name="a", family="audio", n_layers=1, d_model=8, vocab=8,
-                        n_heads=2, n_kv_heads=1, d_ff=8, encoder_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 15.4"):
-        empty_model(audio, "cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_smoke_config("gpt-2")
+    other = ModelConfig(name="a", family="diffusion", n_layers=1, d_model=8, vocab=8,
+                        n_heads=2, n_kv_heads=1, d_ff=8)
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        empty_model(other, "cpu")
 
 
 def test_from_reference_rejects_missing_and_extra_arrays():
@@ -208,6 +211,10 @@ def test_init_follows_reference_scales(arch):
         assert torch.equal(getattr(blk, "lambda"), torch.ones_like(blk.lru_ba))
         assert blk.lru_ba.dtype == torch.float32
         assert abs(blk.conv_w.std().item() - 0.2) < 0.03
+    elif arch == "whisper-medium":  # tests/test_torch_whisper.py holds the rest
+        blk = a.dec[0]
+        assert torch.equal(blk.x_ln, torch.ones_like(blk.x_ln))
+        assert abs(blk.x_wo.std().item() - 0.005) < 5e-4
     else:
         L = cfg.n_layers
         blk = a.layers[0]

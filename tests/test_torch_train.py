@@ -273,23 +273,21 @@ def test_mamba2_prefill_decode_consistency():
 def test_remat_full_gives_the_same_loss_and_gradients():
     """Checkpointing recomputes the layers in the backward pass: on the CPU
     the recomputation repeats the same operations, so the results are
-    bitwise those without it."""
+    bitwise those without it, under "full" and under "dots"
+    (tests/test_torch_remat.py holds every family)."""
     _, params, cfg_t = _pair("kernel")
     tree = jax.tree.map(np.asarray, params)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg_t.vocab, 2, 40, seed=1).items()}
     out = []
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model = from_reference(dataclasses.replace(cfg_t, remat=remat), tree, "cpu")
         model.requires_grad_(True)
         loss, _ = model.loss(batch)
         loss.backward()
         out.append((loss, [p.grad for p in model.parameters()]))
-    assert torch.equal(out[0][0], out[1][0])
-    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from_reference(dataclasses.replace(cfg_t, remat="dots"), tree, "cpu").forward(
-            batch["tokens"]
-        )
+    for loss, grads in out[1:]:
+        assert torch.equal(out[0][0], loss)
+        assert all(torch.equal(a, b) for a, b in zip(out[0][1], grads))
 
 
 # ---- optimizer, loss, data, checkpoints ------------------------------------
@@ -476,16 +474,45 @@ def test_train_cli_on_cpu(tmp_path, capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    """An arch whose family is not ported (Whisper, the audio family)
-    raises naming ROADMAP, in either mode; without a card the default
-    device raises."""
-    for mode in ("plain", "consensus"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            train.main(["--arch", "whisper-medium", "--smoke", "--steps", "1",
-                         "--device", "cpu", "--mode", mode])
+    """Every arch is ported; without a card the default device raises
+    rather than falling back to the CPU."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--arch", ARCH, "--smoke", "--steps", "1"])
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train.main(["--arch", "whisper-medium", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("mode", ["plain", "consensus"])
+def test_train_cli_trains_whisper(mode, monkeypatch, capsys):
+    """Both modes of the CLI on the whisper smoke config: every training
+    batch (every agent's slice of it in consensus mode) carries the
+    reference's stand-in frames, (rows, encoder_positions, D) of 0.01,
+    one per token row; the reference's launcher leaves them out of its
+    consensus batches, and its Whisper loss raises there."""
+    from repro_torch.models.whisper import Whisper
+
+    seen = []
+    loss = Whisper.loss
+
+    def recording_loss(self, batch):
+        seen.append((batch["tokens"].shape[0], batch["extra_embeds"]))
+        return loss(self, batch)
+
+    monkeypatch.setattr(Whisper, "loss", recording_loss)
+    out = train.main(["--arch", "whisper-medium", "--smoke", "--device", "cpu", "--steps", "2",
+                      "--batch", "16", "--seq", "16", "--log-every", "1", "--mode", mode])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert (f"training whisper-medium (smoke) on cpu mode={mode} remat=full"
+            in capsys.readouterr().out)
+    cfg = out["model"].cfg
+    # plain: one loss a step; consensus (A 2, incremental): one per agent
+    assert len(seen) == (2 if mode == "plain" else 4)
+    for rows, ee in seen:
+        assert rows == (16 if mode == "plain" else 8)
+        assert torch.equal(ee, torch.full((rows, cfg.encoder_positions, cfg.d_model), 0.01))
+    if mode == "consensus":
+        assert out["residuals"][-1] > 0
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "qwen2-vl-72b"])
