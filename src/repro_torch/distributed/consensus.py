@@ -21,10 +21,19 @@ sqrt(k), in float32 and cast to the parameter dtype:
 "incremental" (the paper): only agent (k - 1) mod A commits; "parallel":
 every agent commits.
 
-Scope: every agent lives on the model's device and the agents run one
-after another in this process, as the reference's launcher runs them on
-its one-device mesh. The reference's mesh plumbing (the agent axis
-sharded across devices, ``make_consensus_mesh``, ``state_shape``,
+Placement: the agents run one after another in this process. By default
+every agent lives on the model's device, as the reference's launcher
+runs them on its one-device mesh. Given ``devices`` (D of them, the
+first the model's), the runtime places the agent axis as the reference's
+mesh does: agent a's x_a, y_a and batch rows live on ``devices[a % D]``;
+each device holds one workspace module (the model on the first, a
+replica on the others) and one copy of z. Each committing agent's f32
+z-delta moves to every copy of z and the adds run in agent order, so
+every copy computes the same z+, and D devices give bit for bit the
+one-device result wherever the arithmetic is the same: this copy is the
+token traversal, one model's worth of traffic per incremental step. The
+residual and the metrics are reduced on ``devices[0]``. The reference's
+mesh plumbing (``make_consensus_mesh``, ``state_shape``,
 ``state_specs``, ``lower_train_step``) exists for XLA's lowering and is
 not ported (ROADMAP Queue 1, item 15).
 
@@ -42,8 +51,9 @@ How the port differs in form, not in result:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,16 +85,33 @@ class ConsensusRuntime:
     """Consensus state and train step for one model. Turns the model's
     parameters' gradients on (they are created without).
 
-    State: ``x`` and ``y`` map each parameter name of the model to an
-    (A, ...) tensor, ``z`` to a tensor of the parameter's shape, and ``k``
-    is the step count (an int)."""
+    ``devices``: where the agents live (agent a on ``devices[a % D]``);
+    the first must be the model's device, which is also the default. The
+    replicas on the other devices copy the model as it is when the
+    runtime is built (its dtypes and config).
 
-    def __init__(self, model, cfg: ConsensusConfig):
+    State: ``x`` and ``y`` map each parameter name of the model to agent
+    a's tensor at index ``a``: one (A, ...) tensor on one device, a list
+    of A tensors (each on its agent's device) on several. ``z`` maps each
+    name to a tensor of the parameter's shape on ``devices[0]`` (the
+    served model); on several devices ``z_rep`` holds a copy of z for
+    each of ``devices[1:]``, bit for bit. ``k`` is the step count (an
+    int)."""
+
+    def __init__(self, model, cfg: ConsensusConfig, devices: Optional[Sequence] = None):
         if cfg.mode not in ("incremental", "parallel"):
             raise ValueError(f"unknown consensus mode {cfg.mode!r}")
         self.model = model
         self.cfg = cfg
         model.requires_grad_(True)
+        home = next(model.parameters()).device
+        self.devices = [torch.device(d) for d in (devices or [home])]
+        if self.devices[0] != home:
+            raise ValueError(
+                f"devices[0] must be the model's device {home}, got {self.devices[0]}"
+            )
+        # One workspace module a device: the model, then its replicas.
+        self.workspaces = [model] + [copy.deepcopy(model).to(d) for d in self.devices[1:]]
         code = cfg.code()
         # ECN j's u-th stored partition and its encode coefficient
         # B[j, supp(j)[u]], float32 as the reference keeps them.
@@ -101,12 +128,22 @@ class ConsensusRuntime:
 
     def init_state(self) -> dict:
         """z = the model's current weights, x_a = z for every agent, y = 0."""
-        A = self.cfg.n_agents
+        A, devs = self.cfg.n_agents, self.devices
         z = {n: p.detach().clone() for n, p in self.model.named_parameters()}
+        if len(devs) == 1:
+            return {
+                "x": {n: p.expand(A, *p.shape).clone() for n, p in z.items()},
+                "y": {n: p.new_zeros((A, *p.shape)) for n, p in z.items()},
+                "z": z,
+                "k": 0,
+            }
+        at = [devs[a % len(devs)] for a in range(A)]
         return {
-            "x": {n: p.expand(A, *p.shape).clone() for n, p in z.items()},
-            "y": {n: p.new_zeros((A, *p.shape)) for n, p in z.items()},
+            "x": {n: [p.to(d, copy=True) for d in at] for n, p in z.items()},
+            "y": {n: [torch.zeros(p.shape, dtype=p.dtype, device=d) for d in at]
+                  for n, p in z.items()},
             "z": z,
+            "z_rep": [{n: p.to(d, copy=True) for n, p in z.items()} for d in devs[1:]],
             "k": 0,
         }
 
@@ -138,14 +175,16 @@ class ConsensusRuntime:
         """One csI-ADMM iteration (eqs. 5a, 5b, 4c).
 
         batch: tensors of (A * K * (S + 1) * P, ...) rows in coded
-        allocation order, on the model's device; alive: the (A, K) ECN
-        response mask (numpy). Updates x and y in place and returns the
-        state with the new z and k, and the metrics ``loss`` and ``nll``
-        (means over all agents), ``consensus_residual`` (the mean over
-        agents of ||x_a+ - z+||), ``tau`` and ``gamma``."""
+        allocation order (each agent's rows move to its device); alive:
+        the (A, K) ECN response mask (numpy). Updates x and y in place and
+        returns the state with the new z (and its copies) and k, and the
+        metrics ``loss`` and ``nll`` (means over all agents),
+        ``consensus_residual`` (the mean over agents of ||x_a+ - z+||),
+        ``tau`` and ``gamma``, on ``devices[0]``."""
         cfg = self.cfg
         A = cfg.n_agents
-        model = self.model
+        devs = self.devices
+        D = len(devs)
         k = state["k"] + 1
         kf = np.float32(k)
         tau = np.float32(cfg.c_tau) * np.sqrt(kf)
@@ -156,27 +195,31 @@ class ConsensusRuntime:
         tau, rho = float(tau), float(rho)
 
         rows = batch["tokens"].shape[0] // A
-        dev = batch["tokens"].device
-        w = torch.from_numpy(self.row_weights(alive, rows)).to(dev)
+        w = torch.from_numpy(self.row_weights(alive, rows))
         commit = {(k - 1) % A} if cfg.mode == "incremental" else set(range(A))
-        params = dict(model.named_parameters())
-        X, Y, Z = state["x"], state["y"], state["z"]
+        X, Y = state["x"], state["y"]
+        Zs = [state["z"], *state.get("z_rep", ())]  # z's copy on each device
         f32 = torch.float32
-        zd = {n: torch.zeros(p.shape, dtype=f32, device=p.device) for n, p in Z.items()}
+        # Each device's sum of the committed deltas, in agent order.
+        zd = [{n: torch.zeros(p.shape, dtype=f32, device=p.device) for n, p in Z.items()}
+              for Z in Zs]
         losses, nlls = [], []
         for a in range(A):
+            d = a % D
+            dev, Z = devs[d], Zs[d]
+            params = dict(self.workspaces[d].named_parameters())
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(X[n][a])
-            ab = {key: v[a * rows:(a + 1) * rows] for key, v in batch.items()}
-            ab["loss_weights"] = w[a]
+            ab = {key: v[a * rows:(a + 1) * rows].to(dev) for key, v in batch.items()}
+            ab["loss_weights"] = w[a].to(dev)
             if a not in commit:
                 with torch.no_grad():
-                    loss, metrics = model.loss(ab)
+                    loss, metrics = self.workspaces[d].loss(ab)
             else:
                 for p in params.values():
                     p.grad = None
-                loss, metrics = model.loss(ab)
+                loss, metrics = self.workspaces[d].loss(ab)
                 loss.backward()
                 with torch.no_grad():
                     for n, p in params.items():
@@ -187,29 +230,33 @@ class ConsensusRuntime:
                         xp = ((tau * x32 + rho * z32 + y32 - g32) / rho_tau).to(x.dtype)
                         xp32 = xp.to(f32)
                         yp = (y32 + rho_gamma * (z32 - xp32)).to(y.dtype)
-                        zd[n] += (xp32 - x32) - (yp.to(f32) - y32) / rho
+                        delta = (xp32 - x32) - (yp.to(f32) - y32) / rho
+                        for acc in zd:  # the token traversal
+                            acc[n] += delta.to(acc[n].device)
                         x.copy_(xp)
                         y.copy_(yp)
                         p.grad = None
-            losses.append(loss.detach().to(f32))
-            nlls.append(metrics["nll"].detach().to(f32))
+            losses.append(loss.detach().to(f32).to(devs[0]))
+            nlls.append(metrics["nll"].detach().to(f32).to(devs[0]))
 
-        # eq. (4c): z+ = z + (1/A) sum_a mask_a delta_a.
+        # eq. (4c): z+ = z + (1/A) sum_a mask_a delta_a, on every device.
         scale = 1.0 / A
         with torch.no_grad():
-            z_new = {n: (Z[n].to(f32) + scale * zd[n]).to(Z[n].dtype) for n in Z}
+            z_new = [{n: (Z[n].to(f32) + scale * acc[n]).to(Z[n].dtype) for n in Z}
+                     for Z, acc in zip(Zs, zd)]
             del zd
-            sq = torch.zeros((A,), dtype=f32, device=dev)
-            for n, z in z_new.items():
-                z32 = z.to(f32)
+            sq = [torch.zeros((), dtype=f32, device=devs[a % D]) for a in range(A)]
+            for n in z_new[0]:
                 for a in range(A):
-                    d = X[n][a].to(f32) - z32
-                    sq[a] += (d * d).sum().to(dev)
-        new_state = {"x": X, "y": Y, "z": z_new, "k": k}
+                    diff = X[n][a].to(f32) - z_new[a % D][n].to(f32)
+                    sq[a] += (diff * diff).sum()
+        new_state = {"x": X, "y": Y, "z": z_new[0], "k": k}
+        if D > 1:
+            new_state["z_rep"] = z_new[1:]
         metrics = {
             "loss": torch.stack(losses).mean(),
             "nll": torch.stack(nlls).mean(),
-            "consensus_residual": torch.sqrt(sq).mean(),
+            "consensus_residual": torch.sqrt(torch.stack([t.to(devs[0]) for t in sq])).mean(),
             "tau": torch.tensor(tau, dtype=f32),
             "gamma": torch.tensor(float(gamma), dtype=f32),
         }

@@ -35,7 +35,7 @@ from .ref import (
     ssd_scan_ref,
 )
 from .rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
-from .ssd_scan import ssd_scan_kernel
+from .ssd_scan import ssd_body, ssd_scan_kernel, ssd_scan_tc_kernel
 
 __all__ = [
     "coded_combine",
@@ -216,8 +216,11 @@ def rglru_scan(
 
 
 class _SSDScan(torch.autograd.Function):
-    """K4 with a gradient. The forward is the CUDA kernel for CUDA tensors
-    and the sequential plain version for CPU tensors. The backward is plain
+    """K4 with a gradient. The forward is the CUDA kernel for CUDA tensors,
+    in the body that `ssd_body` picks from the inputs (the tensor-core body
+    for bfloat16 at P = 64, N = 128, a chunk in ``TC_CHUNKS`` and 16-byte
+    aligned x/Bm/Cm; the CUDA-core body otherwise), and the sequential
+    plain version for CPU tensors. The backward is plain
     PyTorch on both devices: the JAX package has no backward kernel for
     its SSD scan (nothing there defines a custom VJP, and the reference
     trains through ``ssd_chunked``), so the backward recomputes the port's
@@ -228,10 +231,11 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
         if x.device.type == "cuda":
-            y, h = ssd_scan_kernel(
-                x.contiguous(), dt.to(torch.float32).contiguous(),
-                A.to(torch.float32).contiguous(), Bm.contiguous(), Cm.contiguous(),
-                chunk,
+            xc, Bc, Cc = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+            tc = ssd_body(xc, Bc, Cc, chunk) == "tensor_cores"
+            y, h = (ssd_scan_tc_kernel if tc else ssd_scan_kernel)(
+                xc, dt.to(torch.float32).contiguous(), A.to(torch.float32).contiguous(),
+                Bc, Cc, chunk,
             )
         else:
             y, h = ssd_scan_ref(x, dt, A, Bm, Cm)
@@ -272,7 +276,7 @@ def ssd_scan(
     """Chunked SSD scan from a zero state: (y (B, S, H, P), h_final
     (B, H, P, N)). On CUDA: the kernel (x, Bm, Cm of one dtype, float32 or
     bfloat16; float32 outputs; a ragged S masked in the kernel, as the
-    reference's dt = 0 padding). On the CPU: the sequential plain version. Differentiable on
-    both (`_SSDScan`)."""
+    reference's dt = 0 padding), in the body `ssd_body` picks. On the CPU:
+    the sequential plain version. Differentiable on both (`_SSDScan`)."""
     _on_cuda(x, "ssd-scan")
     return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)

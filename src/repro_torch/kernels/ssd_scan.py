@@ -12,16 +12,17 @@ Two bodies, each with its own wrapper, never one for the other after a
 failure:
 
 - ``ssd_scan_kernel`` (``ssd_scan_launch``): three passes of float32
-  FMAs, every dtype and shape above. The model's kernel path
-  (`repro_torch.kernels.ops.ssd_scan`) runs this one.
+  FMAs, every dtype and shape above.
 - ``ssd_scan_tc_kernel`` (``ssd_scan_tc_launch``): a scores pass and a
   sequential pass per head on wgmma, for bfloat16 at P = 64, N = 128 and
   chunk 64, 128 or 256 (mamba2-1.3b's heads), with x, Bm and Cm on
-  16-byte boundaries; it raises elsewhere. It meets the kernel's
-  tolerance against the exact answer, but not the bf16 training
-  comparison, which holds the kernel path to a forward that rounds as
-  ``ssd_chunked`` does (ROADMAP.md, Queue 3), so training does not take
-  it yet.
+  16-byte boundaries; it raises elsewhere. Its training gradients are as
+  close to an f64 training step as the plain bf16 path's (the witness of
+  ROADMAP.md Queue 3 item 1).
+
+``ssd_body`` says which of the two the model's kernel path
+(`repro_torch.kernels.ops.ssd_scan`) runs: the tensor-core body wherever
+it takes the inputs, the CUDA-core body elsewhere.
 
 The wrappers only launch: contiguous CUDA tensors, x/Bm/Cm in one of
 float32 or bfloat16, dt and A in float32, P <= 64, N <= 128 and
@@ -42,7 +43,7 @@ from . import _build
 
 __all__ = [
     "LAUNCHES", "MAX_P", "MAX_N", "MAX_CHUNK", "KERNEL_NAMES", "TC_CHUNKS",
-    "ssd_scan_kernel", "ssd_scan_tc_kernel",
+    "ssd_body", "ssd_scan_kernel", "ssd_scan_tc_kernel",
 ]
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024  # the tiles of the source
@@ -108,18 +109,28 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tc(x, Bm, Cm, chunk: int) -> None:
-    """What the tensor-core body takes beyond `_check`: its one shape, and
-    x/Bm/Cm on 16-byte boundaries (it reads them with 16-byte loads)."""
+def _tc_refusal(x, Bm, Cm, chunk: int):
+    """Why the tensor-core body cannot take these inputs (None when it
+    can): beyond `_check`, it takes one shape, and x/Bm/Cm on 16-byte
+    boundaries (it reads them with 16-byte loads)."""
     P, N = x.shape[-1], Bm.shape[-1]
     if not (x.dtype == torch.bfloat16 and (P, N) == (64, 128) and chunk in TC_CHUNKS):
-        raise ValueError(
-            f"the tensor-core body takes bfloat16 with P = 64, N = 128 and chunk "
-            f"in {TC_CHUNKS}, got {x.dtype}, P={P}, N={N}, chunk={chunk}"
-        )
+        return (f"the tensor-core body takes bfloat16 with P = 64, N = 128 and chunk "
+                f"in {TC_CHUNKS}, got {x.dtype}, P={P}, N={N}, chunk={chunk}")
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.data_ptr() % 16:
-            raise ValueError(f"the tensor-core body needs {name} on a 16-byte boundary")
+            return f"the tensor-core body needs {name} on a 16-byte boundary"
+    return None
+
+
+def ssd_body(x, Bm, Cm, chunk: int) -> str:
+    """The body that `repro_torch.kernels.ops.ssd_scan` runs on these
+    inputs: ``"tensor_cores"`` wherever that body takes them (bfloat16,
+    P = 64, N = 128, chunk in ``TC_CHUNKS``, x/Bm/Cm on 16-byte
+    boundaries), else ``"cuda_cores"``. A function of the inputs alone;
+    a tensor-core launch that fails raises, it is not retried on the other
+    body."""
+    return "cuda_cores" if _tc_refusal(x, Bm, Cm, chunk) else "tensor_cores"
 
 
 def ssd_scan_kernel(
@@ -162,7 +173,9 @@ def ssd_scan_tc_kernel(
     chunk: int,  # one of TC_CHUNKS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`ssd_scan_kernel`'s function from the tensor-core body."""
-    _check_tc(x, Bm, Cm, chunk)
+    refusal = _tc_refusal(x, Bm, Cm, chunk)
+    if refusal:
+        raise ValueError(refusal)
     _check(x, dt, A, Bm, Cm, chunk)
     B, S, H, P = x.shape
     N = Bm.shape[-1]

@@ -231,3 +231,103 @@ def test_train_cli_consensus_mode_runs_on_cpu(capsys):
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert np.isfinite(out["residuals"]).all() and out["state"]["k"] == 2
     assert "mode=consensus" in capsys.readouterr().out
+
+
+# ---- the agent axis across devices -------------------------------------------
+
+
+def _per_agent(t, A):
+    """Agent a's tensor at index a, from either layout, on the CPU."""
+    return [t[a].cpu() for a in range(A)]
+
+
+def _same_state(one, many, A, D):
+    """The state of a runtime over D devices bit for bit the one-device
+    runtime's: x and y agent by agent, z and each of its copies."""
+    assert many["k"] == one["k"]
+    for key in ("x", "y"):
+        assert set(many[key]) == set(one[key])
+        for n, t in one[key].items():
+            assert isinstance(many[key][n], list) and len(many[key][n]) == A
+            for got, want in zip(_per_agent(many[key][n], A), _per_agent(t, A)):
+                assert torch.equal(got, want), (key, n)
+    assert len(many["z_rep"]) == D - 1
+    for z in (many["z"], *many["z_rep"]):
+        for n, t in one["z"].items():
+            assert torch.equal(z[n].cpu(), t.cpu()), n
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms while the test runs: the CPU's threaded
+    backward can sum in another order from one call to the next (the same
+    module's gradient moved by an ulp between two calls), and two runs
+    compare bit for bit only where the arithmetic is the same."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.parametrize("mode", ["incremental", "parallel"])
+@pytest.mark.parametrize("A,D", [(2, 2), (3, 3), (4, 2)])
+def test_agents_across_devices_are_bit_for_bit_one_device(A, D, mode, deterministic):
+    """Agent a on ``devices[a % D]`` (the CPU listed D times, each with its
+    own workspace and copy of z) over five steps with fresh coded batches
+    and stragglers: the state and every metric equal the one-device
+    runtime's at each step."""
+    K, S, P_rows, p = 4, 1, 2, 5
+    cfg = ConsensusConfig(n_agents=A, K=K, S=S, scheme="cyclic", mode=mode, rho=0.7)
+    models = [_Quad(p), _Quad(p)]
+    for m in models:
+        with torch.no_grad():
+            m.w.copy_(torch.linspace(-0.5, 0.5, p))
+    one = ConsensusRuntime(models[0], cfg)
+    many = ConsensusRuntime(models[1], cfg, devices=["cpu"] * D)
+    assert len(many.workspaces) == D and many.workspaces[0] is models[1]
+    sup = [cfg.code().support(j) for j in range(K)]
+    rng = np.random.default_rng(A * 10 + D)
+    s1, s2 = one.init_state(), many.init_state()
+    for _ in range(5):
+        _, flat = _coded_batch(rng, A, K, S, P_rows, p, sup)
+        alive = np.ones((A, K), bool)
+        alive[np.arange(A), rng.integers(0, K, size=A)] = False
+        batch = {"tokens": torch.from_numpy(flat)}
+        s1, m1 = one.train_step(s1, batch, alive)
+        s2, m2 = many.train_step(s2, batch, alive)
+        _same_state(s1, s2, A, D)
+        for key in m1:
+            assert torch.equal(m1[key], m2[key]), key
+    many.load_served(s2)
+    assert torch.equal(models[1].w, s1["z"]["w"])
+
+
+def test_devices_must_start_at_the_models_device():
+    with pytest.raises(ValueError, match="model's device"):
+        ConsensusRuntime(_Quad(), ConsensusConfig(), devices=["meta", "cpu"])
+
+
+@pytest.mark.parametrize("mode", ["incremental", "parallel"])
+@pytest.mark.parametrize("A,D", [(2, 2), (4, 4)])
+def test_lm_agents_across_devices_are_bit_for_bit_one_device(mode, A, D, deterministic):
+    """The qwen3 smoke model (float32), A agents on D CPU "devices"
+    against one device, over the launcher's coded batches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("qwen3-0.6b")
+    ccfg = ConsensusConfig(n_agents=A, K=4, S=1, c_tau=20.0, c_gamma=0.1, mode=mode)
+    rts = [
+        ConsensusRuntime(get_model(cfg, device="cpu",
+                                   generator=torch.Generator().manual_seed(0)), ccfg, devices=d)
+        for d in (None, ["cpu"] * D)
+    ]
+    states = [rt.init_state() for rt in rts]
+    args = _args(steps=2, consensus_mode=mode, agents=A, batch=A * 8)
+    for batch, alive in train.consensus_batches(args, ccfg.code(), cfg.vocab, cfg):
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        (s1, m1), (s2, m2) = (rt.train_step(s, tb, alive) for rt, s in zip(rts, states))
+        states = [s1, s2]
+        _same_state(s1, s2, A, D)
+        for key in m1:
+            assert torch.equal(m1[key], m2[key]), key

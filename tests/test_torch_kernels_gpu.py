@@ -229,11 +229,15 @@ def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
 def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N, chunk):
     from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
 
+    from repro_torch.kernels.ssd_scan import ssd_body
+
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, TORCH[dtype], cuda)
-    before = SSD["ssd_scan"]
+    # The body the rule picks launches once, the other not at all.
+    key = {"tensor_cores": "ssd_scan_tc", "cuda_cores": "ssd_scan"}[ssd_body(x, Bm, Cm, chunk)]
+    before = dict(SSD)
     y, h = t_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert SSD["ssd_scan"] == before + 1
+    assert SSD == dict(before, **{key: before[key] + 1})
     want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
@@ -304,6 +308,37 @@ def test_ssd_scan_gradient_on_the_card_is_autograd_of_ssd_chunked(cuda):
     y, h = t_ops.ssd_scan(*a, chunk=128)
     torch.autograd.backward([y, h], [gy, gh])
     y2, h2 = ssd_chunked(*b, 128)
+    torch.autograd.backward([y2, h2], [gy, gh])
+    for name, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
+        assert ta.grad is not None and torch.isfinite(ta.grad).all(), name
+        assert _normwise(ta.grad, tb.grad) <= 1e-6, name
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bf16_training_runs_the_tensor_cores_and_autograd_of_ssd_chunked(cuda):
+    """mamba2-1.3b's heads in bf16 (P 64, N 128, chunk 256): `ops.ssd_scan`
+    launches the tensor-core body once and the CUDA-core body never, its
+    forward is within SSD_TOL of the exact answer, and its gradient is
+    autograd of the plain ``ssd_chunked`` on the same inputs (1e-6)."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_body
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    inputs = _ssd_inputs(2, 600, 4, 64, 128, torch.bfloat16, cuda, seed=7)
+    assert ssd_body(inputs[0], inputs[3], inputs[4], 256) == "tensor_cores"
+    a = [t.clone().requires_grad_(True) for t in inputs]
+    b = [t.clone().requires_grad_(True) for t in inputs]
+    g = torch.Generator(device="cpu").manual_seed(11)
+    gy = torch.randn(2, 600, 4, 64, generator=g).to(cuda)
+    gh = torch.randn(2, 4, 64, 128, generator=g).to(cuda)
+    before = dict(SSD)
+    y, h = t_ops.ssd_scan(*a, chunk=256)
+    torch.cuda.synchronize()
+    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
+    want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in inputs))
+    assert _normwise(y, want_y) <= SSD_TOL and _normwise(h, want_h) <= SSD_TOL
+    torch.autograd.backward([y, h], [gy, gh])
+    y2, h2 = ssd_chunked(*b, 256)
     torch.autograd.backward([y2, h2], [gy, gh])
     for name, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
         assert ta.grad is not None and torch.isfinite(ta.grad).all(), name
