@@ -13,6 +13,16 @@ Phases (any failure raises, exits non-zero and prints no result):
               build times and ptxas reports, and count each K4 kernel's
               HGMMA instructions in `cuobjdump -sass` (the tensor-core
               body's two kernels must issue some).
+1a. analysis — the port's trace contracts on the card
+              (`repro_torch.analysis`): the AST lint of `src/repro_torch`
+              (no finding), then the step audit of the reference's ten
+              grids in f64, 12 steps a static group: one `[analysis]`
+              line a grid with its groups, K1 entries and launches (equal,
+              `iters` a step on the coded grids, none on the others),
+              host syncs under `torch.cuda.set_sync_debug_mode("error")`
+              (none), f64 -> f32 demotions and output dtypes, gated
+              against the committed `src/repro_torch/analysis/
+              trace_audit.json`.
 2. kernels  — every kernel against its plain PyTorch version on the card,
               with times from CUDA events and torch.profiler (which must
               see the kernel by name), the card's bound, the share of it
@@ -565,6 +575,54 @@ def coded_work(kind, R, J, n, dtype, alive_rows):
     else:
         nbytes += R * n * cs  # out in the accumulation dtype
     return nbytes, flops, PEAK_FLOPS[ct]
+
+
+def phase_analysis():
+    """The AST lint of the port, then the step audit of every grid on the
+    card in f64, gated against the committed pin."""
+    from repro_torch.analysis import lint_paths, traceaudit
+
+    t0 = time.perf_counter()
+    findings = lint_paths([os.path.join(ROOT, "src", "repro_torch")], root=ROOT)
+    for f in findings:
+        log(f"[analysis] {f}")
+    if findings:
+        raise AssertionError(f"[analysis] {len(findings)} lint finding(s)")
+    lint_s = time.perf_counter() - t0
+    report = traceaudit.audit_report(device="cuda", dtype=torch.float64)
+    for name, entry in report.items():
+        sigs = list(entry["signatures"].values())
+        log(
+            f"[analysis] {name}: groups {entry['groups']}, k1_calls "
+            f"{[c['k1_calls'] for c in sigs]}, k1_launches "
+            f"{[c['k1_launches'] for c in sigs]}, host_syncs "
+            f"{[c['host_syncs'] for c in sigs]}, demotions "
+            f"{[c['demotions'] for c in sigs]}, out_dtypes "
+            f"{sorted({d for c in sigs for d in c['out_dtypes']})}"
+        )
+    unchecked = [
+        f"{name} {sig}" for name, entry in report.items()
+        for sig, c in entry["signatures"].items()
+        if c["host_syncs"] is None or c["k1_launches"] is None
+    ]
+    if unchecked:
+        raise AssertionError(f"[analysis] no card reading for {unchecked}")
+    baseline = traceaudit.load_baseline()
+    if baseline is None:
+        raise AssertionError("[analysis] no committed trace_audit.json")
+    failures, notes = traceaudit.compare_report(report, baseline)
+    for n in notes:
+        log(f"[analysis] note: {n}")
+    for f in failures:
+        log(f"[analysis] FAIL: {f}")
+    if failures:
+        raise AssertionError(f"[analysis] {len(failures)} contract failure(s)")
+    n_sigs = sum(len(e["signatures"]) for e in report.values())
+    log(
+        f"[analysis] lint clean in {lint_s:.2f} s; {len(report)} grids / "
+        f"{n_sigs} groups clean against the pin; phase "
+        f"{time.perf_counter() - t0:.2f} s"
+    )
 
 
 def phase_build():
@@ -3464,6 +3522,7 @@ def main() -> int:
         f"count {torch.cuda.device_count()}"
     )
     phase_build()
+    phase_analysis()
     rows = phase_kernels()
     rows += phase_attention_kernels()
     phase_attention_scan()

@@ -17,7 +17,7 @@ on a card, its plain version on the CPU. The sub-batch size
 mu = M/((S+1)K) is a per-run input masked against the batch bound MU, so
 a whole straggler-tolerance sweep shares one batch. I-ADMM (exact_x)
 replaces the stochastic x-update with the closed-form full-batch solve
-(eq. 4a, `torch.linalg.solve`).
+(eq. 4a, `torch.linalg.solve_ex`).
 
 Event-driven mode: when the run's `TimingModel` is async (``tau_max > 0``
 or ``churn_rate > 0``) the token increment dz of iteration k lands with a
@@ -263,10 +263,13 @@ class IncrementalADMM(MethodKernel):
         R = xi.shape[0]
 
         if statics["exact_x"]:
-            x_new = torch.linalg.solve(
+            # solve_ex: `solve` without its singularity check, which
+            # waits for the card every step; H + rho I is positive
+            # definite, and the result is the same bits.
+            x_new = torch.linalg.solve_ex(
                 aux["H"][runs, i] + rho3 * aux["eye"],
                 aux["rhs0"][runs, i] + rho3 * z + yi,
-            )
+            ).result
         else:
             # One gather of all K partitions' sub-batches. With mixed mu in
             # a batch, rows >= a run's mu can index past its N*b pool (the
@@ -350,7 +353,9 @@ class IncrementalADMM(MethodKernel):
         # read slot includes this step's own write when delta = 0 — the
         # synchronous landing), then clear the slot.
         z = state["z"] + pend[runs, rslot]
-        pend[runs, rslot] = 0.0
+        # A zero on the device: a Python 0.0 here is a host scalar that
+        # the indexed write copies over, which waits for the card.
+        pend[runs, rslot] = pend.new_zeros(())
         return dict(state, **upd, z=z, pend=pend)
 
     def final(self, state, aux, statics):

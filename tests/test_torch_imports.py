@@ -1,6 +1,7 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-JAX nor the reference package `repro`, and importing the port builds no
-kernel (no nvcc, no CUDA needed)."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and
+`tools/torch_trace_lint.py` import neither JAX nor the reference package
+`repro`, and importing the port builds no kernel (no nvcc, no CUDA
+needed)."""
 
 import os
 import pathlib
@@ -17,12 +18,18 @@ FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)",
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        # The trace-lint CLI twin, AST lint and step audit, on the CPU.
+        spec = importlib.util.spec_from_file_location(
+            "torch_trace_lint", "tools/torch_trace_lint.py")
+        cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cli)
+        assert cli.main(["--device", "cpu"]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
@@ -43,7 +50,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                     "configs.mixtral_8x22b", "configs.qwen2_vl_72b",
                     "configs.llama3_405b", "configs.stablelm_1_6b",
                     "configs.internlm2_20b", "models.whisper",
-                    "configs.whisper_medium"):
+                    "configs.whisper_medium", "analysis.astcheck",
+                    "analysis.traceaudit"):
             assert "repro_torch." + mod in names, mod
         print(len(names))
         """
@@ -57,10 +65,13 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     # Every module imported: one per source file but the package's own
     # __init__.
     assert int(out.stdout.split()[-1]) == len(list(PKG.rglob("*.py"))) - 1
+    assert "10 grids / 15 static groups clean on cpu" in out.stdout
 
 
 def test_sources_never_import_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_lint.py"
+    ]
     assert len(files) > 20
     offenders = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
