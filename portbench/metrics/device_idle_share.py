@@ -1,0 +1,11 @@
+"""Percent of the traced window in which no operation ran on the device:
+1 - (the union of every device operation's interval, kernels and copies)
+/ (the window's span), over the profiled steps."""
+
+UNIT, BETTER, SOURCE = "%", "lower", "device_trace"
+LAYER, MOVES = "device", "step_s"
+
+
+def read(record):
+    t = record.trace
+    return 100.0 * (1.0 - t.busy_s() / t.window_s) if t and t.device else None
