@@ -1,0 +1,16 @@
+"""Device idle time a step while the host is in the model: the part of
+the device's idle set (the gaps in the union of every device operation
+over the traced window) that falls inside the program's ``*.forward`` and
+``*.backward`` spans (`portbench.phases.idle_in`), in ms over the
+profiled steps. None when the program marks no such span."""
+
+from portbench import phases
+
+UNIT, BETTER, SOURCE = "ms", "lower", "device_trace"
+LAYER, MOVES = "model step", "step_s"
+
+
+def read(record):
+    t = record.trace
+    spans = phases.intervals(t.host, phases.MODEL) if t and t.device else []
+    return phases.idle_in(t.device, spans, *t.window) * 1e-3 / t.n_steps if spans else None

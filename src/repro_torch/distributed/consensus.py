@@ -47,6 +47,15 @@ How the port differs in form, not in result:
 - in incremental mode an agent that does not commit runs its forward
   only, for the metrics (the reference computes and masks its gradient:
   the result is the same).
+
+Under a recording profiler the step marks its phases
+(`repro_torch.tracing.span`): ``consensus.step`` around the call; inside
+it ``consensus.row_weights`` (the host's decode weights and the zeroed
+z-delta sums), then per agent ``consensus.load`` (x_a into the
+workspace, the agent's rows and weights to its device) and
+``consensus.forward``, per committing agent ``consensus.backward`` and
+``consensus.update`` (eqs. 5a/5b and the z-delta, leaf by leaf), and last
+``consensus.z_update`` (eq. 4c, the residual, the metrics).
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coding import GradientCode, make_code
+from repro_torch.tracing import span
 
 __all__ = ["ConsensusConfig", "ConsensusRuntime"]
 
@@ -181,6 +191,10 @@ class ConsensusRuntime:
         metrics ``loss`` and ``nll`` (means over all agents),
         ``consensus_residual`` (the mean over agents of ||x_a+ - z+||),
         ``tau`` and ``gamma``, on ``devices[0]``."""
+        with span("consensus.step"):
+            return self._train_step(state, batch, alive)
+
+    def _train_step(self, state: dict, batch: Dict[str, torch.Tensor], alive):
         cfg = self.cfg
         A = cfg.n_agents
         devs = self.devices
@@ -195,33 +209,36 @@ class ConsensusRuntime:
         tau, rho = float(tau), float(rho)
 
         rows = batch["tokens"].shape[0] // A
-        w = torch.from_numpy(self.row_weights(alive, rows))
         commit = {(k - 1) % A} if cfg.mode == "incremental" else set(range(A))
         X, Y = state["x"], state["y"]
         Zs = [state["z"], *state.get("z_rep", ())]  # z's copy on each device
         f32 = torch.float32
-        # Each device's sum of the committed deltas, in agent order.
-        zd = [{n: torch.zeros(p.shape, dtype=f32, device=p.device) for n, p in Z.items()}
-              for Z in Zs]
+        with span("consensus.row_weights"):
+            w = torch.from_numpy(self.row_weights(alive, rows))
+            # Each device's sum of the committed deltas, in agent order.
+            zd = [{n: torch.zeros(p.shape, dtype=f32, device=p.device) for n, p in Z.items()}
+                  for Z in Zs]
         losses, nlls = [], []
         for a in range(A):
             d = a % D
             dev, Z = devs[d], Zs[d]
             params = dict(self.workspaces[d].named_parameters())
-            with torch.no_grad():
+            with span("consensus.load"), torch.no_grad():
                 for n, p in params.items():
                     p.copy_(X[n][a])
-            ab = {key: v[a * rows:(a + 1) * rows].to(dev) for key, v in batch.items()}
-            ab["loss_weights"] = w[a].to(dev)
+                ab = {key: v[a * rows:(a + 1) * rows].to(dev) for key, v in batch.items()}
+                ab["loss_weights"] = w[a].to(dev)
             if a not in commit:
-                with torch.no_grad():
+                with span("consensus.forward"), torch.no_grad():
                     loss, metrics = self.workspaces[d].loss(ab)
             else:
                 for p in params.values():
                     p.grad = None
-                loss, metrics = self.workspaces[d].loss(ab)
-                loss.backward()
-                with torch.no_grad():
+                with span("consensus.forward"):
+                    loss, metrics = self.workspaces[d].loss(ab)
+                with span("consensus.backward"):
+                    loss.backward()
+                with span("consensus.update"), torch.no_grad():
                     for n, p in params.items():
                         x, y, z = X[n][a], Y[n][a], Z[n]
                         x32, y32, z32 = x.to(f32), y.to(f32), z.to(f32)
@@ -241,7 +258,7 @@ class ConsensusRuntime:
 
         # eq. (4c): z+ = z + (1/A) sum_a mask_a delta_a, on every device.
         scale = 1.0 / A
-        with torch.no_grad():
+        with span("consensus.z_update"), torch.no_grad():
             z_new = [{n: (Z[n].to(f32) + scale * acc[n]).to(Z[n].dtype) for n in Z}
                      for Z, acc in zip(Zs, zd)]
             del zd
@@ -250,16 +267,16 @@ class ConsensusRuntime:
                 for a in range(A):
                     diff = X[n][a].to(f32) - z_new[a % D][n].to(f32)
                     sq[a] += (diff * diff).sum()
-        new_state = {"x": X, "y": Y, "z": z_new[0], "k": k}
-        if D > 1:
-            new_state["z_rep"] = z_new[1:]
-        metrics = {
-            "loss": torch.stack(losses).mean(),
-            "nll": torch.stack(nlls).mean(),
-            "consensus_residual": torch.sqrt(torch.stack([t.to(devs[0]) for t in sq])).mean(),
-            "tau": torch.tensor(tau, dtype=f32),
-            "gamma": torch.tensor(float(gamma), dtype=f32),
-        }
+            new_state = {"x": X, "y": Y, "z": z_new[0], "k": k}
+            if D > 1:
+                new_state["z_rep"] = z_new[1:]
+            metrics = {
+                "loss": torch.stack(losses).mean(),
+                "nll": torch.stack(nlls).mean(),
+                "consensus_residual": torch.sqrt(torch.stack([t.to(devs[0]) for t in sq])).mean(),
+                "tau": torch.tensor(tau, dtype=f32),
+                "gamma": torch.tensor(float(gamma), dtype=f32),
+            }
         return new_state, metrics
 
     @torch.no_grad()

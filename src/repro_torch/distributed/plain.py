@@ -7,6 +7,10 @@ global norm of 1.0, one Adam step (float32 moments), and the metrics
 are updated in place, as are the gradients' clipping and the optimizer's
 moments in the runtime's state (``clip_by_global_norm_``,
 ``adam_update_``: the reference's arithmetic, leaf by leaf).
+
+Under a recording profiler the step marks its phases
+(`repro_torch.tracing.span`): ``plain.step`` around the call, and inside
+it ``plain.forward``, ``plain.backward``, ``plain.clip``, ``plain.adam``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.optim import adam_init, adam_update_, clip_by_global_norm_
+from repro_torch.tracing import span
 
 __all__ = ["PlainRuntime"]
 
@@ -36,25 +41,30 @@ class PlainRuntime:
         return {"opt": adam_init(self.params())}
 
     def train_step(self, state: dict, batch: dict) -> Tuple[dict, dict]:
-        params = self.params()
-        for p in params.values():
-            p.grad = None
-        loss, metrics = self.model.loss(batch)
-        loss.backward()
-        grads = {
-            k: torch.zeros_like(p) if p.grad is None else p.grad
-            for k, p in params.items()
-        }
-        gn = clip_by_global_norm_(grads, 1.0)
-        adam_update_(params, grads, state["opt"], self.lr)
-        del grads
-        for p in params.values():
-            p.grad = None
-        return state, {
-            "loss": loss.detach(),
-            "nll": metrics["nll"].detach(),
-            "grad_norm": gn,
-        }
+        with span("plain.step"):
+            params = self.params()
+            for p in params.values():
+                p.grad = None
+            with span("plain.forward"):
+                loss, metrics = self.model.loss(batch)
+            with span("plain.backward"):
+                loss.backward()
+            with span("plain.clip"):
+                grads = {
+                    k: torch.zeros_like(p) if p.grad is None else p.grad
+                    for k, p in params.items()
+                }
+                gn = clip_by_global_norm_(grads, 1.0)
+            with span("plain.adam"):
+                adam_update_(params, grads, state["opt"], self.lr)
+            del grads
+            for p in params.values():
+                p.grad = None
+            return state, {
+                "loss": loss.detach(),
+                "nll": metrics["nll"].detach(),
+                "grad_norm": gn,
+            }
 
     def prefill_step(self, batch: dict) -> Tuple[torch.Tensor, Any]:
         kwargs = {}

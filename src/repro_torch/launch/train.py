@@ -21,6 +21,13 @@ rows, the straggler draws) is numpy, bit for bit the reference's.
       --smoke --device cpu --mode consensus --steps 5 --batch 8 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --batch 2 --seq 4096 --steps 5
+
+``--trace PATH`` profiles the two steps after the first (``--steps`` 3 or
+more) and writes them to PATH as a Chrome trace (chrome://tracing,
+Perfetto), holding the runtime's phase spans (`repro_torch.tracing`:
+``plain.forward`` / ``backward`` / ``clip`` / ``adam``,
+``consensus.load`` / ``forward`` / ``backward`` / ``update`` / ...)
+beside the device's kernels.
 """
 
 from __future__ import annotations
@@ -50,13 +57,40 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _StepTrace:
+    """``--trace``: a profiler over steps 1 and 2, written out after step 2."""
+
+    def __init__(self, path: Optional[str], device: torch.device):
+        self.path = path
+        self.device = device
+        self.prof = None
+        if path is not None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+
+    def before(self, k: int) -> None:
+        if self.prof is not None and k == 1:
+            self.prof.start()
+
+    def after(self, k: int) -> None:
+        if self.prof is not None and k == 2:
+            _sync(self.device)
+            self.prof.stop()
+            self.prof.export_chrome_trace(self.path)
+            print(f"trace of steps 1-2 written to {self.path}", flush=True)
+
+
 def run_plain(model, args) -> dict:
     rt = PlainRuntime(model, lr=args.lr)
     state = rt.init_state()
     stream = agent_token_streams(1, model.cfg.vocab, seed=args.seed)[0]
     dev = model.device
     losses, step_s = [], []
+    trace = _StepTrace(getattr(args, "trace", None), dev)
     for k in range(args.steps):
+        trace.before(k)
         batch = {
             key: torch.from_numpy(v).to(dev)
             for key, v in make_lm_batch(stream, args.batch, args.seq).items()
@@ -77,6 +111,7 @@ def run_plain(model, args) -> dict:
             )
         if args.ckpt_dir and (k + 1) % args.ckpt_every == 0:
             save_step(args.ckpt_dir, k + 1, to_reference(model))
+        trace.after(k)
     return {"losses": losses, "step_s": step_s, "state": state, "model": model}
 
 
@@ -133,8 +168,10 @@ def run_consensus(model, args) -> dict:
     state = rt.init_state()
     dev = model.device
     losses, residuals, step_s, alives = [], [], [], []
+    trace = _StepTrace(getattr(args, "trace", None), dev)
     for k, (batch, alive) in enumerate(consensus_batches(
             args, ccfg.code(), model.cfg.vocab, model.cfg)):
+        trace.before(k)
         tb = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
         _sync(dev)
         t0 = time.perf_counter()
@@ -151,6 +188,7 @@ def run_consensus(model, args) -> dict:
             )
         if args.ckpt_dir and (k + 1) % args.ckpt_every == 0:
             save_step(args.ckpt_dir, k + 1, flat_to_reference(model, state["z"]))
+        trace.after(k)
     rt.load_served(state)
     return {"losses": losses, "residuals": residuals, "step_s": step_s,
             "alive": alives, "state": state, "model": model, "runtime": rt}
@@ -170,6 +208,8 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write steps 1 and 2 to PATH as a Chrome trace")
     # consensus
     ap.add_argument("--agents", type=int, default=2)
     ap.add_argument("--ecns", type=int, default=4)
@@ -185,6 +225,8 @@ def main(argv: Optional[list] = None) -> dict:
         "--consensus-mode", choices=("incremental", "parallel"), default="incremental"
     )
     args = ap.parse_args(argv)
+    if args.trace is not None and args.steps < 3:
+        ap.error("--trace profiles steps 1 and 2: give --steps 3 or more")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, remat="full")
