@@ -284,6 +284,7 @@ SOURCES = {
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan_bwd": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # The TPU kernel each port kernel replaces; a backward kernel names the TPU
 # kernel whose gradient it gives (the TPU kernels have none: the reference
@@ -296,6 +297,7 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:79",
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:98",
     "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:63",
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:79",
 }
 # K3 shapes: (B, S, H, KV, hd, window, dtype). The first two are the
 # qwen3-0.6b prefill step of [serve-qwen3]; hd 256 with one kv head is
@@ -371,6 +373,33 @@ SSD_SHAPES = {
 # log 16): its 256-step chunks sum a_t to thousands, where a decay factor
 # taken as a difference of cumulative sums loses its digits.
 SSD_A16 = ("train_step_a16_tc",)
+# K4's backward kernel at the benchmark cells' call (B, S, H, P, N, chunk):
+# 8 rows of 2,048 steps, mamba2-1.3b's heads, bf16. Its gradients are held
+# to the f64 twin at that call, at a quarter of its batch with a gradient of
+# the final state, and at SSD_BWD_SMALL ((B, S, H, chunk, gh given) at P 64,
+# N 128: the card tests' cases, S a multiple of every chunk or ragged):
+# - dx, dBm, dCm case by case: as returned within SSD_BWD_FACTOR x the gap
+#   of autograd of float32 ``ssd_chunked`` (no farther from f64 than the
+#   path they replace, twice over for another summation order), the float32
+#   sums within SSD_BWD_F32_TOL normwise (float32 round-off of sums of a
+#   chunk's terms; the kernel's read 1.2e-7 to 4.1e-7 at the card tests'
+#   cases) or SSD_BWD_F32_FACTOR x float32 ``ssd_chunked``'s own float32
+#   gap, the larger: at the cells' call float32 ``ssd_chunked`` itself
+#   reads up to 1.02e-6 (dBm), and the kernel's float32 sums 0.42 to 2.46 x
+#   its gap (dx 1.70e-6 against 6.92e-7 on this row's inputs, 8.77e-7
+#   against 5.69e-7 on another seed);
+# - ddt and dA by the worst gap over all the cases, within SSD_BWD_FACTOR x
+#   float32 ``ssd_chunked``'s worst: a case's gap of these sums over whole
+#   sequences is float32 noise of either path (48 cases on the card: one in
+#   seven had the kernel beyond 2 x ssd_chunked's gap, as many the other
+#   way; the worst 5.0e-6 against 4.9e-6), so a rule per case would fail a
+#   correct kernel on some seeds.
+SSD_BWD_SHAPE = (8, 2048, 64, 64, 128, 256)
+SSD_BWD_SMALL = [(2, S, 4, chunk, with_gh) for chunk in (64, 128, 256) for S in (1024, 600)
+                 for with_gh in (True, False)]
+SSD_BWD_FACTOR = 2.0
+SSD_BWD_F32_TOL = 1e-6
+SSD_BWD_F32_FACTOR = 4.0
 # K4 against the exact answer (the sequential recurrence in f64 on the same
 # input values) and against its f32 plain versions on the card (the
 # sequential recurrence and the chunked form), normwise, for both input
@@ -645,7 +674,10 @@ def phase_build():
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
-    sass_check(built[names.index("ssd_scan")][0], ("ssd_scores_kernel", "ssd_scan_tc_kernel"))
+    sass_check(built[names.index("ssd_scan")][0],
+               ("ssd_scores_kernel", "ssd_scan_tc_kernel", "ssd_bwd_states_kernel",
+                "ssd_bwd_dstates_kernel", "ssd_bwd_dx_kernel", "ssd_bwd_ds_kernel",
+                "ssd_bwd_dbc_kernel"))
     sass_check(built[names.index("flash_attention")][0],
                ("flash_attention_tc_kernel", "flash_attention_bwd_tc_kernel"))
 
@@ -2065,7 +2097,134 @@ def phase_ssd_kernels():
                  y[:, :, 0], exact[0][:, :, 0].to(y.dtype), SSD_EXACT_TOL)
         del x, dt, A, Bm, Cm, y, h, exact, versus
         torch.cuda.empty_cache()
+    rows.append(ssd_bwd_row())
     return rows
+
+
+def ssd_bwd_work(B, S, H, P, N, chunk, dtype):
+    """(bytes, flops, peak flops) of the gradient of one K4 call: twice the
+    forward's operations; the inputs read and their gradients written once
+    (the work of `portbench/work/ssd_scan.py::backward`)."""
+    es = torch.finfo(dtype).bits // 8
+    _, flops, peak = ssd_work(B, S, H, P, N, chunk, dtype)
+    return 2 * ((B * S * H * P + 2 * B * S * N) * es + (B * S * H + H) * 4), 2 * flops, peak
+
+
+def ssd_bwd_row():
+    """K4's backward kernel at the benchmark cells' call (SSD_BWD_SHAPE,
+    bf16, no gradient of the final state, head 0 at A = -16): its device
+    time beside its bound and the plain backward's time (autograd of
+    ``ssd_chunked`` on the same inputs, the path outside the tensor-core
+    domain), and its five gradients against the f64 twin
+    ``ssd_scan_bwd_ref`` on that call's own outputs. Besides the timed
+    call, the same check at the cells' heads with a gradient of the final
+    state (a quarter of the batch) and at SSD_BWD_SMALL (module note):
+    dx, dBm and dCm case by case, as returned (bf16) within SSD_BWD_FACTOR
+    x the gap of autograd of float32 ``ssd_chunked`` and as the kernel's
+    float32 sums (``grad_dtype`` float32) within SSD_BWD_F32_TOL or
+    SSD_BWD_F32_FACTOR x that autograd's float32 gap; ddt and dA by the
+    worst gap over all the cases. ``max_abs_err`` is the timed
+    call's largest gap to the plain backward's gradients."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import KERNEL_NAMES, ssd_scan_bwd_tc_kernel
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    B, S, H, P, N, chunk = SSD_BWD_SHAPE
+    names = ("dx", "ddt", "dA", "dBm", "dCm")
+
+    def inputs(batch, S, H, with_gh, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(batch, S, H, P, generator=g, device="cuda").to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(torch.randn(batch, S, H, generator=g, device="cuda"))
+        A = -torch.exp(torch.randn(H, generator=g, device="cuda"))
+        A[0] = -16.0
+        Bm, Cm = ((torch.randn(batch, S, N, generator=g, device="cuda") / N**0.5)
+                  .to(torch.bfloat16) for _ in range(2))
+        gy = torch.randn(batch, S, H, P, generator=g, device="cuda")
+        gh = torch.randn(batch, H, P, N, generator=g, device="cuda") if with_gh else None
+        return x, dt, A, Bm, Cm, gy, gh
+
+    def chunked(x, dt, A, Bm, Cm, gy, gh, chunk, dtype=None):
+        leaves = [(t if dtype is None else t.to(dtype)).detach().requires_grad_(True)
+                  for t in (x, dt, A, Bm, Cm)]
+        y, h = ssd_chunked(*leaves, chunk)
+        outs = [(y, gy)] + ([(h, gh)] if gh is not None else [])
+        return torch.autograd.grad([o for o, _ in outs], leaves, [g for _, g in outs])
+
+    def rel(got, want):
+        return max_err(got, want) / max(want.abs().max().item(), 1e-30)
+
+    worst = {n: dict(kernel=0.0, ssd_chunked=0.0) for n in ("ddt", "dA")}
+
+    def check(label, x, dt, A, Bm, Cm, gy, gh, chunk):
+        """Gaps of one case (dx, dBm, dCm held here; ddt, dA into
+        ``worst``) and the kernel's gradients."""
+        exact = ref.ssd_scan_bwd_ref(*(t if t is None else t.double()
+                                       for t in (x, dt, A, Bm, Cm, gy, gh)), chunk)
+        got = ssd_scan_bwd_tc_kernel(x, dt, A, Bm, Cm, gy, gh, chunk)
+        got32 = ssd_scan_bwd_tc_kernel(x, dt, A, Bm, Cm, gy, gh, chunk, torch.float32)
+        plain32 = chunked(x, dt, A, Bm, Cm, gy, gh, chunk, torch.float32)
+        torch.cuda.synchronize()
+        gaps = {}
+        for n, k, k32, p, e in zip(names, got, got32, plain32, exact):
+            gaps[n] = dict(kernel=rel(k, e), kernel_f32=rel(k32, e),
+                           ssd_chunked=rel(p.to(k.dtype), e), ssd_chunked_f32=rel(p, e))
+            if not (bool(torch.isfinite(k).all()) and bool(torch.isfinite(k32).all())):
+                raise AssertionError(f"ssd_scan_bwd {label} {n}: not finite")
+            if n in worst:
+                for side in ("kernel", "ssd_chunked"):
+                    worst[n][side] = max(worst[n][side], gaps[n][side])
+                continue
+            tol = SSD_BWD_FACTOR * gaps[n]["ssd_chunked"]
+            tol32 = max(SSD_BWD_F32_TOL, SSD_BWD_F32_FACTOR * gaps[n]["ssd_chunked_f32"])
+            if not (gaps[n]["kernel"] <= tol and gaps[n]["kernel_f32"] <= tol32):
+                raise AssertionError(f"ssd_scan_bwd {label} {n}: gaps {gaps[n]} (tolerance "
+                                     f"{tol:.3e} returned, {tol32:.3e} float32)")
+        return gaps, got
+
+    gaps = {}
+    for batch, S_, H_, chunk_, with_gh in ((B // 4, S, H, chunk, True), *SSD_BWD_SMALL):
+        label = f"B{batch} S{S_} H{H_} chunk{chunk_} gh{int(with_gh)}"
+        gaps[label], _ = check(label, *inputs(batch, S_, H_, with_gh, S_ * H_ + chunk_ + with_gh),
+                               chunk_)
+        torch.cuda.empty_cache()
+    log("[kernels] ssd_scan_bwd cases " + json.dumps(gaps))
+
+    x, dt, A, Bm, Cm, gy, _ = inputs(B, S, H, False, S * H + B)
+    label = "cells_step"
+    gaps[label], got = check(label, x, dt, A, Bm, Cm, gy, None, chunk)
+    plain = chunked(x, dt, A, Bm, Cm, gy, None, chunk)
+    max_abs = max(max_err(k, p) for k, p in zip(got, plain))
+    del got, plain
+    torch.cuda.empty_cache()
+    for n, w in worst.items():
+        if not w["kernel"] <= SSD_BWD_FACTOR * w["ssd_chunked"]:
+            raise AssertionError(f"ssd_scan_bwd {n}: worst gaps over the cases {w} "
+                                 f"(tolerance {SSD_BWD_FACTOR} x ssd_chunked's)")
+
+    def kern():
+        return ssd_scan_bwd_tc_kernel(x, dt, A, Bm, Cm, gy, None, chunk)
+
+    times = pass_times("ssd_scan_bwd", kern, 10, KERNEL_NAMES["backward"])
+    row = dict(
+        name="ssd_scan_bwd", shape="cells_step", B=B, S=S, H=H, P=P, N=N, chunk=chunk,
+        dtype="bfloat16", body="tensor_cores", normwise_err=gaps[label],
+        worst_log_decay=worst,
+        tol=dict(returned=f"{SSD_BWD_FACTOR} x ssd_chunked",
+                 float32=f"max({SSD_BWD_F32_TOL}, {SSD_BWD_F32_FACTOR} x ssd_chunked_f32)",
+                 log_decay=f"worst over the cases, {SSD_BWD_FACTOR} x ssd_chunked's"),
+        max_abs_err=max_abs, ms=cuda_ms(kern, 10), device_ms=times["device_ms"],
+        plain_ms=cuda_ms(lambda: chunked(x, dt, A, Bm, Cm, gy, None, chunk), 3),
+        library_ms=None,
+    )
+    roofline(row, *ssd_bwd_work(B, S, H, P, N, chunk, torch.bfloat16))
+    log("[kernels] " + json.dumps(row))
+    log("[kernels] ssd_scan_bwd passes " + json.dumps(dict(
+        device_ms=times["device_ms"], all_kernels_ms=times["all_kernels_ms"],
+        passes=times["passes"])))
+    del x, dt, A, Bm, Cm, gy
+    torch.cuda.empty_cache()
+    return row
 
 
 def reset_launches():
@@ -2380,8 +2539,10 @@ def phase_train_mamba2():
         f"remat {cfg.remat}")
     # K4's launches in one loss + backward on the kernel path: the body that
     # `ssd_body` picks, the tensor-core one in bf16 and the CUDA-core one in
-    # f32, in the forward and its recomputation.
-    per_pass = {"bfloat16": {"ssd_scan_tc": 2 * L}, "float32": {"ssd_scan": 2 * L}}
+    # f32, in the forward and its recomputation; in bf16 also the backward
+    # kernel, once a layer (in f32 the backward is autograd of ssd_chunked).
+    per_pass = {"bfloat16": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L},
+                "float32": {"ssd_scan": 2 * L}}
     result, out = {}, {}
     for dtype in ("bfloat16", "float32"):
         if dtype == "float32":
@@ -2438,6 +2599,7 @@ def phase_train_mamba2():
     losses = run["losses"]
     want = {k: 0 for k in launches}
     want["ssd_scan_tc"] = steps * 2 * L
+    want["ssd_scan_bwd_tc"] = steps * L
     if launches != want:
         raise AssertionError(f"train-mamba2: launches {launches}, want {want} ({steps} steps)")
     if len(losses) != steps or not all(np.isfinite(losses)):
@@ -2446,17 +2608,20 @@ def phase_train_mamba2():
     log(f"[train-mamba2] {steps} steps: losses {json.dumps(losses)}, step s "
         f"{json.dumps(run['step_s'])}, warm step {warm:.4f} s, peak device memory "
         f"{peak / 2**30:.2f} GiB, K4 launches {launches['ssd_scan_tc']} "
-        f"({launches['ssd_scan_tc'] // steps} per step, the tensor-core body)")
+        f"({launches['ssd_scan_tc'] // steps} per step, the tensor-core body), K4 backward "
+        f"launches {launches['ssd_scan_bwd_tc']} ({launches['ssd_scan_bwd_tc'] // steps} per step)")
     rt = PlainRuntime(run["model"], lr=3e-4)
     state = run["state"]
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_lm_batch(stream, B, S).items()}
     prof = profile_share(lambda: rt.train_step(state, batch), top=8,
-                         named=[n for names in KERNEL_NAMES.values() for n in names])
+                         named=sorted({n for names in KERNEL_NAMES.values() for n in names}))
     log("[train-mamba2] profile of one warm step: " + json.dumps(prof))
-    # K4's tensor-core body runs each of its passes 2 L times; the CUDA-core
-    # body, never.
+    # K4's tensor-core body runs each of its passes 2 L times and the
+    # backward kernel each of its passes L times (the scores pass is in
+    # both); the CUDA-core body, never.
     k4 = {n: v["launches"] for n, v in prof["kernels"].items()}
-    want = {n: (2 * L if n in KERNEL_NAMES["tensor_cores"] else 0) for n in k4}
+    want = {n: (2 * L if n in KERNEL_NAMES["tensor_cores"] else 0)
+            + (L if n in KERNEL_NAMES["backward"] else 0) for n in k4}
     if k4 != want:
         raise AssertionError(f"train-mamba2 profiled step: K4 launches {k4}, want {want}")
     k4_ms = sum(v["ms"] for v in prof["kernels"].values())
@@ -2464,7 +2629,8 @@ def phase_train_mamba2():
         f"{sum(k4.values())} launches ({prof['device_busy_ms']:.1f} ms busy in "
         f"{prof['wall_ms']:.1f} ms of wall); warm step {warm:.4f} s")
     result.update(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
-                  k4_device_ms=k4_ms, launches_per_step=launches["ssd_scan_tc"] // steps)
+                  k4_device_ms=k4_ms, launches_per_step=launches["ssd_scan_tc"] // steps,
+                  bwd_launches_per_step=launches["ssd_scan_bwd_tc"] // steps)
     del run, rt, state, batch
     torch.cuda.empty_cache()
     return result
@@ -3290,7 +3456,7 @@ def phase_train_mamba2_witness(seeds=(0, 1), B=2, S=4096):
         + ("" if L == full.n_layers else f"; depth cut {full.n_layers} -> {L} layers for "
            "every path"))
     want_launches = {"plain": {}, "cuda_cores": {"ssd_scan": 2 * L},
-                     "tensor_cores": {"ssd_scan_tc": 2 * L}}
+                     "tensor_cores": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L}}
     readings = []
     for seed in seeds:
         model = get_model(cfg, device="cuda",
@@ -3548,7 +3714,8 @@ def main() -> int:
     phase_train_mamba2_witness()
     qwen_train = phase_train_qwen3()
     rg_train = phase_train_rg()
-    phase_consensus("consensus-mamba2", "mamba2-1.3b", {"ssd_scan_tc": 48}, {})
+    phase_consensus("consensus-mamba2", "mamba2-1.3b", {"ssd_scan_tc": 48},
+                    {"ssd_scan_bwd_tc": 48})
     phase_consensus("consensus-qwen3", "qwen3-0.6b", {"flash_attention": 28},
                     {"flash_attention_bwd": 28})
     phase_moe_vlm()
@@ -3561,6 +3728,7 @@ def main() -> int:
     launches["ssd_scan"] = mamba["launches_per_step"]
     launches["flash_attention_bwd"] = qwen_train["launches_per_step"]["flash_attention_bwd"]
     launches["rglru_scan_bwd"] = rg_train["launches_per_step"]["rglru_scan_bwd"]
+    launches["ssd_scan_bwd"] = mamba["bwd_launches_per_step"]
     # Each kernel's row in the summary: its main path's shape and dtype.
     main_shape = {
         "coded_admm_update": ("fig5_step", "float64"),
@@ -3570,6 +3738,7 @@ def main() -> int:
         "ssd_scan": ("train_step_tc", "bfloat16"),
         "flash_attention_bwd": ("qwen3_train", "bfloat16"),
         "rglru_scan_bwd": ("rg_train", "float32"),
+        "ssd_scan_bwd": ("cells_step", "bfloat16"),
     }
     main_row = {
         r["name"]: r for r in rows if (r["shape"], r["dtype"]) == main_shape[r["name"]]

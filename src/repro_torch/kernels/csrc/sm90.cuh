@@ -2,9 +2,10 @@
 // loads and reduce-adds, cp.async, ldmatrix, the 128-byte swizzle, wgmma
 // shared-memory descriptors and the bf16 wgmma: both operands from shared
 // memory (N 32, 64, 128, either one transposed: `wgmma_ss_t`), or A from
-// registers (N 64, 128). Included by the kernel sources under csrc/;
-// a change here rebuilds every source that includes it (the build key
-// hashes the local headers a source includes).
+// registers (N 64, 128; B N-major, or K-major: the `_rs` forms). Included
+// by the kernel sources under csrc/; a change here rebuilds every source
+// that includes it (the build key hashes the local headers a source
+// includes).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only: nothing links libcuda)
@@ -281,6 +282,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SM90_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the fragment of
+// wgmma_m64n64k16_rs_tb) . B (16 x 64, bf16), B in shared memory K-major
+// (each of its 64 columns holds its 16 K values contiguously: a tile stored
+// [n][k], 128-byte rows, the descriptor's SBO the stride between 8-row
+// groups; a k-step of 16 advances 32 bytes within the row).
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SM90_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same with N = 128 (B K-major: 128 rows of K values, 8-row groups
+// SBO apart).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : SM90_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }

@@ -5,9 +5,10 @@ hand-written kernel or the call raises; a CPU tensor goes to the plain
 PyTorch version (`repro_torch.kernels.ref`); any other device raises.
 There is no fallback from one to the other. ``flash_attention``,
 ``rglru_scan`` and ``ssd_scan`` are differentiable on the card through
-autograd Functions (`_FlashAttention` and `_RGLRUScan`, whose backward is
-a hand-written kernel; `_SSDScan`, whose backward is plain PyTorch); on
-the CPU the plain versions run under ordinary autograd. The coded-combine
+autograd Functions (`_FlashAttention`, `_RGLRUScan` and `_SSDScan`, whose
+backward is a hand-written kernel; `_SSDScan`'s only where its forward ran
+the tensor-core body, plain PyTorch elsewhere); on the CPU the plain
+versions run under ordinary autograd. The coded-combine
 kernels have no backward (nothing differentiates them).
 
 Unlike the reference, nothing is padded or re-tiled: the TPU kernels need
@@ -35,7 +36,7 @@ from .ref import (
     ssd_scan_ref,
 )
 from .rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
-from .ssd_scan import ssd_body, ssd_scan_kernel, ssd_scan_tc_kernel
+from .ssd_scan import ssd_body, ssd_scan_bwd_tc_kernel, ssd_scan_kernel, ssd_scan_tc_kernel
 
 __all__ = [
     "coded_combine",
@@ -220,13 +221,15 @@ class _SSDScan(torch.autograd.Function):
     in the body that `ssd_body` picks from the inputs (the tensor-core body
     for bfloat16 at P = 64, N = 128, a chunk in ``TC_CHUNKS`` and 16-byte
     aligned x/Bm/Cm; the CUDA-core body otherwise), and the sequential
-    plain version for CPU tensors. The backward is plain
-    PyTorch on both devices: the JAX package has no backward kernel for
-    its SSD scan (nothing there defines a custom VJP, and the reference
-    trains through ``ssd_chunked``), so the backward recomputes the port's
+    plain version for CPU tensors. The backward follows the forward's
+    choice, kept on ``ctx``: where the forward ran the tensor-core body, the
+    backward kernel (`ssd_scan_bwd_tc_kernel`); elsewhere (the CUDA-core
+    domain and the CPU) plain PyTorch, which recomputes the port's
     ``ssd_chunked`` from the saved inputs under autograd and returns its
-    gradients — what the reference's trained path differentiates. A
-    backward kernel is ROADMAP Queue 2 work."""
+    gradients. The JAX package has no backward kernel for its SSD scan
+    (nothing there defines a custom VJP, and the reference trains through
+    ``ssd_chunked``): the kernel computes the gradient of the same
+    function."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
@@ -238,9 +241,10 @@ class _SSDScan(torch.autograd.Function):
                 Bc, Cc, chunk,
             )
         else:
+            tc = False
             y, h = ssd_scan_ref(x, dt, A, Bm, Cm)
         ctx.save_for_backward(x, dt, A, Bm, Cm)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.tc = chunk, tc
         ctx.set_materialize_grads(False)
         return y, h
 
@@ -249,9 +253,19 @@ class _SSDScan(torch.autograd.Function):
         from repro_torch.models.mamba2 import ssd_chunked
 
         need = ctx.needs_input_grad[:5]
+        saved = ctx.saved_tensors
+        x, dt, A, Bm, Cm = saved
+        if ctx.tc:
+            grads = ssd_scan_bwd_tc_kernel(
+                x.contiguous(), dt.to(torch.float32).contiguous(),
+                A.to(torch.float32).contiguous(), Bm.contiguous(), Cm.contiguous(),
+                gy, gh, ctx.chunk,
+            )
+            return (*(g.to(t.dtype) if n else None
+                      for g, t, n in zip(grads, saved, need)), None)
         with torch.enable_grad():
             leaves = [
-                t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)
+                t.detach().requires_grad_(n) for t, n in zip(saved, need)
             ]
             y, h = ssd_chunked(*leaves, ctx.chunk)
             # An output whose gradient is None (unused) is left out; then an

@@ -18,7 +18,9 @@ Counterparts of `repro.kernels.ref`:
   backward kernel.
 - ``ssd_scan_ref``: the sequential Mamba-2 SSD recurrence, in
   ``promote(dtype, float32)`` (the reference computes in float32 and
-  raises on float64 ``dt``; float64 here serves the gradient checks).
+  raises on float64 ``dt``; float64 here serves the gradient checks);
+  ``ssd_scan_bwd_ref`` the gradient of the chunked form, the algebra of
+  the K4 backward kernel.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ __all__ = [
     "rglru_scan_ref",
     "rglru_scan_bwd_ref",
     "ssd_scan_ref",
+    "ssd_scan_bwd_ref",
 ]
 
 
@@ -256,3 +259,124 @@ def ssd_scan_ref(
         h = a * h + xdt[..., None] * Bm[:, t].to(ct)[:, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t].to(ct)))
     return torch.stack(ys, dim=1), h
+
+
+def _exclusive_cumsum(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """sum of the entries before each one along ``dim`` (0 for the first),
+    each a direct sum: no difference of two cumulative sums."""
+    head = v.narrow(dim, 0, v.shape[dim] - 1)
+    return torch.cat([torch.zeros_like(v.narrow(dim, 0, 1)), torch.cumsum(head, dim)], dim)
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    gy: Optional[torch.Tensor],  # (B, S, H, P) gradient of y, or None (zeros)
+    gh: Optional[torch.Tensor],  # (B, H, P, N) gradient of h_final, or None
+    chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the chunked SSD scan from a zero state (the function
+    of ``ssd_scan_ref`` and `models.mamba2.ssd_chunked`), in
+    ``promote(dtype, float32)``, written as the K4 backward kernel computes
+    it. Returns (dx, ddt, dA, dBm, dCm).
+
+    Per chunk of Q steps (a ragged S padded with dt = 0 steps), a_t = dt_t A,
+    every decay a direct sum of a_t (never a difference of cumulative
+    sums): L_ij = exp(sum_{j<t<=i} a_t), g_i = exp(sum_{t<=i} a_t),
+    e_j = exp(sum_{t>j} a_t), D = exp(sum_t a_t); s_ij = C_i . B_j.
+
+    - states: h_in of each chunk (forward), and dh_out, the gradient of the
+      state leaving each chunk, by the reverse pass dh_out(last) = gh,
+      dh_out(c - 1) = D_c dh_out(c) + sum_i g_i gy_i C_i^T;
+    - per head, G_ij = gy_i . x_j and F_ij = L_ij dt_j (j <= i);
+    - dx_j = dt_j (sum_{i>=j} s_ij L_ij gy_i + e_j dh_out B_j);
+    - dS_ij = sum_h F_ij G_ij; dC_i = sum_j dS_ij B_j + sum_h g_i h_in^T gy_i;
+      dB_j = sum_i dS_ij C_i + sum_h dt_j e_j dh_out^T x_j;
+    - the log-decay gradient da_t = sum_{i>=t, j<t} M_ij (M = s F G)
+      + sum_{i>=t} Z_i + sum_{j<t} W_j + Zd, with Z_i = g_i gy_i . h_in C_i,
+      W_j = dt_j e_j x_j . dh_out B_j, Zd = D <dh_out, h_in>;
+    - ddt_t = A da_t + x_t . (dx_t / dt_t), dA = sum_{b, t} dt_t da_t.
+    """
+    ct = compute_dtype(torch.promote_types(x.dtype, dt.dtype))
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    if gy is None:
+        gy = torch.zeros((B_, S, H, P), dtype=ct, device=x.device)
+
+    def chunks(t, *tail):  # (B, S, ...) -> (B, nc, Q, ...), zero padded
+        t = t.to(ct)
+        if pad:
+            t = torch.cat([t, t.new_zeros((B_, pad) + tuple(t.shape[2:]))], 1)
+        return t.reshape((B_, nc, Q) + tuple(t.shape[2:]))
+
+    xc, gyc = chunks(x), chunks(gy)  # (B, nc, Q, H, P)
+    dtc = chunks(dt).transpose(2, 3)  # (B, nc, H, Q)
+    Bc, Cc = chunks(Bm), chunks(Cm)  # (B, nc, Q, N)
+    A = A.to(ct)
+    a = dtc * A[:, None]  # (B, nc, H, Q)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    strict = torch.tril(tri, diagonal=-1)
+    # seg[i, j] = sum_{j < t <= i} a_t: a cumulative sum down the rows of
+    # a[t] [t > j], as `ssd_chunked`'s _segsum.
+    seg = torch.cumsum(a[..., :, None].masked_fill(~strict, 0.0), dim=-2)
+    L = torch.exp(seg).masked_fill(~tri, 0.0)  # (B, nc, H, Q, Q)
+    g = torch.exp(torch.cumsum(a, -1))  # (B, nc, H, Q)
+    e = torch.exp(torch.flip(_exclusive_cumsum(torch.flip(a, [-1]), -1), [-1]))
+    D = torch.exp(a.sum(-1))  # (B, nc, H)
+    s = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B, nc, Q, Q)
+
+    # Chunk-entry states, forward; state gradients, backward.
+    w = dtc * e  # dt_j e_j
+    h = torch.zeros((B_, H, P, N), dtype=ct, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = D[:, c, :, None, None] * h + torch.einsum(
+            "bhj,bjhp,bjn->bhpn", w[:, c], xc[:, c], Bc[:, c])
+    dh = torch.zeros_like(h) if gh is None else gh.to(ct)
+    dh_out = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        dh_out[c] = dh
+        dh = D[:, c, :, None, None] * dh + torch.einsum(
+            "bhi,bihp,bin->bhpn", g[:, c], gyc[:, c], Cc[:, c])
+    h_in = torch.stack(h_in, 1)  # (B, nc, H, P, N)
+    dh_out = torch.stack(dh_out, 1)
+
+    G = torch.einsum("bcihp,bcjhp->bchij", gyc, xc)
+    F = L * dtc[..., None, :]  # L_ij dt_j
+    M = s[:, :, None] * F * G
+    dS = (F * G).sum(2)  # (B, nc, Q, Q)
+    q = torch.einsum("bchpn,bcjn->bcjhp", dh_out, Bc)  # dh_out B_j
+    intra = torch.einsum("bcij,bchij,bcihp->bcjhp", s, L, gyc)
+    dxhat = intra + e.transpose(2, 3)[..., None] * q
+    dx = dtc.transpose(2, 3)[..., None] * dxhat
+    ddt_direct = (xc * dxhat).sum(-1)  # (B, nc, Q, H)
+    v = torch.einsum("bchpn,bcihp->bcihn", h_in, gyc)  # h_in^T gy_i
+    dC = (torch.einsum("bcij,bcjn->bcin", dS, Bc)
+          + torch.einsum("bchi,bcihn->bcin", g, v))
+    r = torch.einsum("bchpn,bcjhp->bcjhn", dh_out, xc)  # dh_out^T x_j
+    dB = (torch.einsum("bcij,bcin->bcjn", dS, Cc)
+          + torch.einsum("bchj,bcjhn->bcjn", w, r))
+    Z = g.transpose(2, 3) * torch.einsum("bcihn,bcin->bcih", v, Cc)
+    W = w.transpose(2, 3) * torch.einsum("bcjhn,bcjn->bcjh", r, Bc)
+    Zd = D * torch.einsum("bchpn,bchpn->bch", dh_out, h_in)
+    # da_t = sum_{i >= t} sum_{j < t} M_ij: each row's sums before t, then
+    # the rows at or after t.
+    before = _exclusive_cumsum(M, -1)  # [i, t] = sum_{j < t} M_ij
+    da_intra = before.masked_fill(~tri, 0.0).sum(-2)  # over i >= t
+    da_inter = torch.flip(torch.cumsum(torch.flip(Z, [2]), 2), [2])  # over i >= t
+    da_state = _exclusive_cumsum(W, 2)  # over j < t
+    da = da_intra.transpose(2, 3) + da_inter + da_state + Zd[:, :, None]  # (B, nc, Q, H)
+    ddt = A * da + ddt_direct
+    dA = (dtc.transpose(2, 3) * da).sum((0, 1, 2))
+
+    def unchunk(t):
+        return t.reshape((B_, nc * Q) + tuple(t.shape[3:]))[:, :S]
+
+    return unchunk(dx), unchunk(ddt), dA, unchunk(dB), unchunk(dC)

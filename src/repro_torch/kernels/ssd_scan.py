@@ -24,18 +24,29 @@ failure:
 (`repro_torch.kernels.ops.ssd_scan`) runs: the tensor-core body wherever
 it takes the inputs, the CUDA-core body elsewhere.
 
+The gradient of the tensor-core body's function is a kernel too:
+``ssd_scan_bwd_tc_kernel`` (``ssd_scan_bwd_tc_launch``), on the same
+domain, returns dx, ddt, dA, dBm and dCm from the saved inputs and the
+output gradients, every product on wgmma with float32 accumulation (its
+design is in the source's note). The JAX package has no backward kernel
+for its scan (it differentiates its jnp path), so the kernel is held to
+the plain twin ``ref.ssd_scan_bwd_ref`` and to autograd of the port's
+``ssd_chunked``. Elsewhere (float32, other shapes, the CPU) the gradient
+is autograd of ``ssd_chunked`` (`ops._SSDScan`).
+
 The wrappers only launch: contiguous CUDA tensors, x/Bm/Cm in one of
 float32 or bfloat16, dt and A in float32, P <= 64, N <= 128 and
 1 <= chunk <= 1024, or they raise. `repro_torch.kernels.ops.ssd_scan` is
 the entry point (CPU tensors to the plain version, and the gradient).
-``LAUNCHES`` counts calls, one key per body: one call is its passes.
+``LAUNCHES`` counts calls, one key per body and one for the backward: one
+call is its passes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,15 +54,21 @@ from . import _build
 
 __all__ = [
     "LAUNCHES", "MAX_P", "MAX_N", "MAX_CHUNK", "KERNEL_NAMES", "TC_CHUNKS",
-    "ssd_body", "ssd_scan_kernel", "ssd_scan_tc_kernel",
+    "ssd_body", "ssd_scan_kernel", "ssd_scan_tc_kernel", "ssd_scan_bwd_tc_kernel",
 ]
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024  # the tiles of the source
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_tc": 0}
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd_tc": 0}
 # The CUDA kernels each body launches, as a profiler names them.
 KERNEL_NAMES = {
     "tensor_cores": ("ssd_scores_kernel", "ssd_scan_tc_kernel"),
     "cuda_cores": ("chunk_state_kernel", "state_pass_kernel", "chunk_output_kernel"),
+    "backward": (
+        "ssd_scores_kernel", "ssd_bwd_tables_kernel", "ssd_bwd_states_kernel",
+        "ssd_bwd_dstates_kernel",
+        "ssd_bwd_dx_kernel", "ssd_bwd_ds_kernel", "ssd_bwd_dbc_kernel", "ssd_bwd_da_kernel",
+        "ssd_bwd_dA_kernel",
+    ),
 }
 TC_CHUNKS = (64, 128, 256)
 
@@ -70,6 +87,10 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _P,
     ]
     lib.ssd_scan_tc_launch.restype = _I
+    lib.ssd_scan_bwd_tc_workspace.argtypes = [_I, _I64, _I, _I]
+    lib.ssd_scan_bwd_tc_workspace.restype = ctypes.c_size_t
+    lib.ssd_scan_bwd_tc_launch.argtypes = [_P] * 12 + [_I, _P, _I, _I64, _I, _I, _P]
+    lib.ssd_scan_bwd_tc_launch.restype = _I
     lib.ssd_scan_error_string.argtypes = [_I]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -193,6 +214,61 @@ def ssd_scan_tc_kernel(
     _raise_on(err)
     LAUNCHES["ssd_scan_tc"] += 1
     return y, h_fin
+
+
+def ssd_scan_bwd_tc_kernel(
+    x: torch.Tensor,  # (B, S, H, 64) bfloat16
+    dt: torch.Tensor,  # (B, S, H) float32
+    A: torch.Tensor,  # (H,) float32
+    Bm: torch.Tensor,  # (B, S, 128) bfloat16
+    Cm: torch.Tensor,  # (B, S, 128) bfloat16
+    gy: Optional[torch.Tensor],  # (B, S, H, 64) gradient of y, or None (zeros)
+    gh: Optional[torch.Tensor],  # (B, H, 64, 128) gradient of h_fin, or None
+    chunk: int,  # one of TC_CHUNKS
+    grad_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of `ssd_scan_tc_kernel`'s function at these inputs:
+    (dx, ddt, dA, dBm, dCm), dx, dBm and dCm in ``grad_dtype`` (bfloat16,
+    the inputs' type, for autograd; float32 to read the kernel's sums before
+    that rounding), ddt and dA in float32. The output gradients are taken
+    in float32 (copied if they are another type, not contiguous or not on
+    a 16-byte boundary). Raises where the tensor-core body would."""
+    if grad_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"grad_dtype must be bfloat16 or float32, got {grad_dtype}")
+    refusal = _tc_refusal(x, Bm, Cm, chunk)
+    if refusal:
+        raise ValueError(refusal)
+    _check(x, dt, A, Bm, Cm, chunk)
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    dev = x.device
+
+    def f32(t, shape, name):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name}: want {shape} on {dev}, got {tuple(t.shape)} on {t.device}")
+        t = t.to(torch.float32).contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    gy = (torch.zeros((B, S, H, P), dtype=torch.float32, device=dev) if gy is None
+          else f32(gy, (B, S, H, P), "gy"))
+    gh = None if gh is None else f32(gh, (B, H, P, N), "gh")
+    dx = torch.empty_like(x, dtype=grad_dtype)
+    dBm, dCm = torch.empty_like(Bm, dtype=grad_dtype), torch.empty_like(Cm, dtype=grad_dtype)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((H,), dtype=torch.float32, device=dev)
+    work = torch.empty((_lib().ssd_scan_bwd_tc_workspace(B, S, H, chunk),), dtype=torch.uint8,
+                       device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().ssd_scan_bwd_tc_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            gy.data_ptr(), None if gh is None else gh.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+            int(grad_dtype == torch.float32), work.data_ptr(), B, S, H, chunk, stream,
+        )
+    _raise_on(err)
+    LAUNCHES["ssd_scan_bwd_tc"] += 1
+    return dx, ddt, dA, dBm, dCm
 
 
 def _raise_on(err: int) -> None:

@@ -1,11 +1,13 @@
-"""The plain twins of the K3 and K5 backward kernels, on the CPU.
+"""The plain twins of the K3, K4 and K5 backward kernels, on the CPU.
 
-``flash_attention_bwd_ref`` and ``rglru_scan_bwd_ref``
-(`repro_torch.kernels.ref`) are the formulas the backward kernels
-compute, and what the card holds them against (tests/
+``flash_attention_bwd_ref``, ``ssd_scan_bwd_ref`` and
+``rglru_scan_bwd_ref`` (`repro_torch.kernels.ref`) are the formulas the
+backward kernels compute, and what the card holds them against (tests/
 test_torch_kernels_gpu.py, chip_smoke.py). Here they are held, at float64
 within 1e-10 normwise, against torch autograd of the port's forward twins
-and against ``jax.vjp`` of the reference's oracles
+(for K4, the port's ``ssd_chunked``: the JAX package has no gradient of
+its own scan but autograd of its jnp path) and K3's and K5's against
+``jax.vjp`` of the reference's oracles
 (`repro.kernels.ref.flash_attention_ref`, ``rglru_scan_ref``; those cast
 to float32, so they run with their module's ``jnp`` replaced by a view of
 ``jax.numpy`` whose ``float32`` is ``float64``). Cases: GQA, MQA, a window
@@ -25,6 +27,7 @@ import repro.kernels.ref as r_ref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
 from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
+from repro_torch.models.mamba2 import ssd_chunked
 
 TOL = 1e-10
 
@@ -112,6 +115,38 @@ def test_rglru_scan_bwd_ref_matches_autograd_and_jax_vjp(reference_in_f64, B, S,
     for name, g, w, wr in zip(("a", "b", "h0"), got, want, want_r):
         assert _normwise(g, w) <= TOL, name
         assert _normwise(g, np.asarray(wr)) <= TOL, name
+
+
+# (B, S, H, P, N, chunk): a ragged S over three chunks, an even S of two
+# chunks, S shorter than one chunk, a single whole chunk.
+SSD_CASES = [(2, 37, 3, 4, 5, 16), (1, 32, 2, 3, 4, 16), (2, 7, 2, 2, 3, 8), (1, 16, 1, 4, 2, 16)]
+
+
+@pytest.mark.parametrize("with_gy,with_gh", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_scan_bwd_ref_matches_autograd_of_ssd_chunked(B, S, H, P, N, chunk, with_gy, with_gh):
+    """The K4 backward's algebra (chunked, the reverse state pass, direct
+    segment sums) against autograd of ``ssd_chunked`` in float64, with the
+    gradient of y, of the final state, or of both; head 0 decays at
+    A = -16, mamba2-1.3b's fastest."""
+    rng = np.random.default_rng(S * H + chunk)
+    x = rng.standard_normal((B, S, H, P))
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+    A = -np.exp(rng.standard_normal(H))
+    A[0] = -16.0
+    Bm, Cm = rng.standard_normal((2, B, S, N))
+    gy = torch.from_numpy(rng.standard_normal((B, S, H, P))) if with_gy else None
+    gh = torch.from_numpy(rng.standard_normal((B, H, P, N))) if with_gh else None
+    leaves = [torch.from_numpy(v).requires_grad_(True) for v in (x, dt, A, Bm, Cm)]
+    y, h = ssd_chunked(*leaves, chunk)
+    pairs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+    want = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                               allow_unused=True)
+    got = ref.ssd_scan_bwd_ref(*(t.detach() for t in leaves), gy, gh, chunk)
+    for name, g, w, t in zip(("x", "dt", "A", "Bm", "Cm"), got, want, leaves):
+        assert g.dtype == torch.float64 and g.shape == t.shape, name
+        w = torch.zeros_like(g) if w is None else w  # h_final does not depend on Cm
+        assert float((g - w).abs().max()) <= TOL * max(float(w.abs().max()), 1.0), name
 
 
 def test_differentiable_entry_points_run_plain_autograd_on_the_cpu():

@@ -16,7 +16,10 @@ against the sequential recurrence run in float64 on the same input values
 (the exact answer), at 1e-5 for float32 and bf16 inputs alike: the kernel
 reads bf16 exactly and computes in float32, so only its float32 round-off
 shows (a float32 plain version would add its own, growing with S). Its
-gradient is held against autograd of the plain ``ssd_chunked`` at 1e-6.
+float32 gradient (the CUDA-core domain) is held against autograd of the
+plain ``ssd_chunked`` at 1e-6; its bf16 gradient, the backward kernel's,
+against float64 autograd of ``ssd_chunked`` on the same bf16 values (see
+SSD_BWD_FACTOR).
 The backward kernels of K3 and K5 are held against their plain twins
 (``flash_attention_bwd_ref``, ``rglru_scan_bwd_ref``) at the levels
 stated beside each test.
@@ -318,16 +321,16 @@ def test_ssd_scan_gradient_on_the_card_is_autograd_of_ssd_chunked(cuda):
 def test_ssd_scan_bf16_training_runs_the_tensor_cores_and_autograd_of_ssd_chunked(cuda):
     """mamba2-1.3b's heads in bf16 (P 64, N 128, chunk 256): `ops.ssd_scan`
     launches the tensor-core body once and the CUDA-core body never, its
-    forward is within SSD_TOL of the exact answer, and its gradient is
-    autograd of the plain ``ssd_chunked`` on the same inputs (1e-6)."""
+    forward is within SSD_TOL of the exact answer, and its gradient, the
+    backward kernel's (launched once), is as close to float64 autograd of
+    the plain ``ssd_chunked`` on the same inputs as float32 autograd of it
+    (SSD_BWD_FACTOR), each in its input's dtype."""
     from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_body
-    from repro_torch.models.mamba2 import ssd_chunked
 
     inputs = _ssd_inputs(2, 600, 4, 64, 128, torch.bfloat16, cuda, seed=7)
     assert ssd_body(inputs[0], inputs[3], inputs[4], 256) == "tensor_cores"
     a = [t.clone().requires_grad_(True) for t in inputs]
-    b = [t.clone().requires_grad_(True) for t in inputs]
     g = torch.Generator(device="cpu").manual_seed(11)
     gy = torch.randn(2, 600, 4, 64, generator=g).to(cuda)
     gh = torch.randn(2, 4, 64, 128, generator=g).to(cuda)
@@ -338,11 +341,134 @@ def test_ssd_scan_bf16_training_runs_the_tensor_cores_and_autograd_of_ssd_chunke
     want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in inputs))
     assert _normwise(y, want_y) <= SSD_TOL and _normwise(h, want_h) <= SSD_TOL
     torch.autograd.backward([y, h], [gy, gh])
-    y2, h2 = ssd_chunked(*b, 256)
-    torch.autograd.backward([y2, h2], [gy, gh])
-    for name, ta, tb in zip(("x", "dt", "A", "Bm", "Cm"), a, b):
-        assert ta.grad is not None and torch.isfinite(ta.grad).all(), name
-        assert _normwise(ta.grad, tb.grad) <= 1e-6, name
+    torch.cuda.synchronize()
+    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1,
+                       ssd_scan_bwd_tc=before["ssd_scan_bwd_tc"] + 1)
+    assert [t.grad.dtype for t in a] == [t.dtype for t in inputs]
+    gaps, _ = _ssd_bwd_gaps([t.grad for t in a], inputs, gy, gh, 256)
+    for name, (kernel, chunked) in gaps.items():
+        assert kernel <= SSD_BWD_FACTOR * chunked, (name, kernel, chunked)
+
+
+# The backward kernel's gradients against float64 autograd of ssd_chunked on
+# the same bf16 values, each no farther from it than SSD_BWD_FACTOR x the
+# gap of autograd of float32 ssd_chunked (the path it replaces, twice over
+# for another summation order):
+# - dx, dBm and dCm as returned (bf16, as autograd of ssd_chunked returns
+#   them too) case by case, and the kernel's float32 sums of them
+#   (grad_dtype float32) within SSD_BWD_F32_TOL normwise: float32 round-off
+#   of a chunk's sums, as the forward (the card read 1.2e-7 to 4.1e-7,
+#   float32 ssd_chunked 1.4e-7 to 4.4e-7);
+# - ddt and dA (float32) by the worst gap over all the cases: a case's gap
+#   of these sums over whole sequences is float32 noise of either path (over
+#   48 cases on the card, dA's median gap 1.8e-7 against ssd_chunked's 2.5e-7,
+#   the worst 5.0e-6 against 4.9e-6 where both lose digits to cancellation,
+#   yet one case in seven had the kernel beyond 2 x ssd_chunked's gap, and
+#   as many the other way).
+SSD_BWD_FACTOR = 2.0
+SSD_BWD_F32_TOL = 1e-6
+SSD_GRADS = ("x", "dt", "A", "Bm", "Cm")
+SSD_BWD_CASES = [(chunk, S, with_gh) for chunk in (64, 128, 256) for S in (1024, 600)
+                 for with_gh in (True, False)]
+
+
+def _rel(got, want) -> float:
+    return (got.double() - want.double()).abs().max().item() / max(
+        want.double().abs().max().item(), 1e-30)
+
+
+def _chunked_grads(inputs, gy, gh, chunk, dtype):
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    leaves = [t.to(dtype).requires_grad_(True) for t in inputs]
+    y, h = ssd_chunked(*leaves, chunk)
+    pairs = [(y, gy)] + ([(h, gh)] if gh is not None else [])
+    grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                [g.to(dtype) for _, g in pairs], allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g.to(t.dtype) for g, t in zip(grads, inputs)]
+
+
+def _ssd_bwd_gaps(got, inputs, gy, gh, chunk):
+    """({name: (gap of ``got``, gap of float32 ssd_chunked's gradient)} to
+    float64 autograd of ssd_chunked, each gradient in its input's dtype;
+    the float64 gradients)."""
+    exact = _chunked_grads([t.double() for t in inputs], gy, gh, chunk, torch.float64)
+    f32 = _chunked_grads(inputs, gy, gh, chunk, torch.float32)
+    gaps = {n: (_rel(g, e), _rel(c, e)) for n, g, c, e in zip(SSD_GRADS, got, f32, exact)}
+    return gaps, exact
+
+
+def _ssd_bwd_case(cuda, chunk, S, with_gh):
+    """mamba2-1.3b's heads (P 64, N 128) at B 2, H 4, head 0 at A = -16,
+    and output gradients: (inputs, gy, gh)."""
+    inputs = _ssd_inputs(2, S, 4, 64, 128, torch.bfloat16, cuda, seed=chunk + int(with_gh))
+    inputs[2][0] = -16.0
+    g = torch.Generator(device="cpu").manual_seed(S + chunk)
+    gy = torch.randn(2, S, 4, 64, generator=g).to(cuda)
+    gh = torch.randn(2, 4, 64, 128, generator=g).to(cuda) if with_gh else None
+    return inputs, gy, gh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,S,with_gh", SSD_BWD_CASES)
+def test_ssd_scan_backward_kernel_matches_float64(cuda, chunk, S, with_gh):
+    """S a multiple of every chunk or ragged, with and without a gradient of
+    the final state: dx, dBm and dCm against float64 autograd of
+    ``ssd_chunked`` (module note), as returned and as float32 sums; every
+    gradient finite and in its input's dtype; the same bits on a second run;
+    one launch counted a call."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_tc_kernel
+
+    inputs, gy, gh = _ssd_bwd_case(cuda, chunk, S, with_gh)
+    before = dict(SSD)
+    got = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk)
+    again = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk)
+    sums = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk, torch.float32)
+    torch.cuda.synchronize()
+    assert SSD == dict(before, ssd_scan_bwd_tc=before["ssd_scan_bwd_tc"] + 3)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert [t.dtype for t in got] == [t.dtype for t in inputs]
+    assert all(torch.isfinite(t).all() for t in (*got, *sums))
+    gaps, exact = _ssd_bwd_gaps(got, inputs, gy, gh, chunk)
+    for i, name in ((0, "x"), (3, "Bm"), (4, "Cm")):
+        kernel, chunked = gaps[name]
+        assert kernel <= SSD_BWD_FACTOR * chunked, (name, kernel, chunked)
+        assert _rel(sums[i], exact[i]) <= SSD_BWD_F32_TOL, (name, _rel(sums[i], exact[i]))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_backward_log_decay_gradients_match_float64(cuda):
+    """ddt and dA over SSD_BWD_CASES: the kernel's worst gap to float64
+    autograd of ``ssd_chunked`` within SSD_BWD_FACTOR x float32
+    ``ssd_chunked``'s worst (module note)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_tc_kernel
+
+    worst = {"dt": [0.0, 0.0], "A": [0.0, 0.0]}
+    for chunk, S, with_gh in SSD_BWD_CASES:
+        inputs, gy, gh = _ssd_bwd_case(cuda, chunk, S, with_gh)
+        gaps, _ = _ssd_bwd_gaps(ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk), inputs, gy, gh,
+                                chunk)
+        for name, w in worst.items():
+            w[0], w[1] = max(w[0], gaps[name][0]), max(w[1], gaps[name][1])
+    for name, (kernel, chunked) in worst.items():
+        assert kernel <= SSD_BWD_FACTOR * chunked, (name, kernel, chunked)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_float32_backward_stays_autograd_of_ssd_chunked(cuda):
+    """Outside the tensor-core domain (float32 here) the backward is
+    autograd of ``ssd_chunked``: the backward kernel never launches."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
+
+    inputs = _ssd_inputs(1, 300, 2, 64, 128, torch.float32, cuda, seed=3)
+    a = [t.clone().requires_grad_(True) for t in inputs]
+    before = dict(SSD)
+    y, h = t_ops.ssd_scan(*a, chunk=128)
+    (y.sum() + h.sum()).backward()
+    torch.cuda.synchronize()
+    assert SSD == dict(before, ssd_scan=before["ssd_scan"] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in a)
 
 
 @pytest.mark.gpu
