@@ -29,7 +29,7 @@ import torch
 from portbench.reference.common import exact_float32
 
 __all__ = ["ROOT", "PKG", "BANNED", "Cell", "Record", "load_spec", "reader", "resolve",
-           "run_cell", "check", "banned_modules", "device_info"]
+           "cuda_cards", "peak_bytes", "run_cell", "check", "banned_modules", "device_info"]
 
 PKG = pathlib.Path(__file__).resolve().parent
 ROOT = PKG.parent
@@ -112,9 +112,23 @@ def resolve(workload: str, spec: Optional[dict] = None, *, config: Optional[dict
     )
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+def cuda_cards(cell: Cell, device) -> List[int]:
+    """The CUDA cards the cell runs on, as many as it asks for; none on
+    the CPU."""
+    return list(range(cell.entry["chips"])) if torch.device(device).type == "cuda" else []
+
+
+def peak_bytes(cards: List[int], read=None) -> int:
+    """The fullest card's peak of allocated bytes (``read``: a card's
+    peak, ``torch.cuda.max_memory_allocated`` by default); 0 with no card."""
+    read = read or torch.cuda.max_memory_allocated
+    return max((read(c) for c in cards), default=0)
+
+
+def _sync(cards: List[int]) -> None:
+    """Wait for every card of the cell."""
+    for c in cards:
+        torch.cuda.synchronize(c)
 
 
 def check(cell: Cell, seed: int, device, readings) -> Dict[str, dict]:
@@ -141,39 +155,52 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: fl
              program_hook=None) -> Tuple[dict, Dict[str, dict]]:
     """Set-up, the window, the traced window when asked, then the check:
     (the result line's object, its checks with where each number was read).
+    Set-up ends in a full collection and ``gc.freeze()``; the collector
+    scans set-up's objects again once the windows have closed.
     ``t0`` is the ``time.perf_counter()`` of the process's start.
     ``program_hook`` (tests only) may replace parts of the program object
     before set-up's first step."""
     from portbench import trace as tracing
 
-    if torch.device(device).type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    cards = cuda_cards(cell, device)
+    if cards:
+        torch.cuda.init()  # a card's memory statistics exist once CUDA is initialised
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     marks = [time.perf_counter()]
     program = cell.runtime.Program(cell, seed, device)
     if program_hook is not None:
         program_hook(program)
-    _sync(device)
+    _sync(cards)
     marks.append(time.perf_counter())
     readings = cell.runtime.warm_up(program, cell, seed)
-    _sync(device)
+    _sync(cards)
+    # What set-up leaves alive (imports, the program, its state) is kept out
+    # of the collector's scans while steps are timed: a full collection over
+    # it stalls the host, which paces the step, every tenth step or so.
+    gc.collect()
+    gc.freeze()
     setup_s = time.perf_counter() - t0
     setup = {"imports_s": marks[0] - t0, "program_s": marks[1] - marks[0],
              "first_steps_s": t0 + setup_s - marks[1], "each_first_step_s": readings.step_s}
 
-    steps = failed = 0
-    start = time.perf_counter()
-    while time.perf_counter() - start < seconds:
-        loss = program.step()
-        steps += 1
-        failed += not math.isfinite(loss)
-    _sync(device)
-    window_s = time.perf_counter() - start
-    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+    try:
+        steps = failed = 0
+        start = time.perf_counter()
+        while time.perf_counter() - start < seconds:
+            loss = program.step()
+            steps += 1
+            failed += not math.isfinite(loss)
+        _sync(cards)
+        window_s = time.perf_counter() - start
+        peak = peak_bytes(cards)
 
-    trace = None
-    if traced:
-        ops = [op for _, r in cell.per_layer for op in getattr(r, "INSTRUMENT", ())]
-        trace = tracing.profile_steps(program.step, PROFILED_STEPS, ops)
+        trace = None
+        if traced:
+            ops = [op for _, r in cell.per_layer for op in getattr(r, "INSTRUMENT", ())]
+            trace = tracing.profile_steps(program.step, PROFILED_STEPS, ops, len(cards))
+    finally:
+        gc.unfreeze()
     program.close()
     del program
     gc.collect()

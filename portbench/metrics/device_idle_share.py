@@ -1,6 +1,7 @@
-"""Percent of the traced window in which no operation ran on the device:
-1 - (the union of every device operation's interval, kernels and copies)
-/ (the window's span), over the profiled steps."""
+"""Percent of the traced window in which no operation ran on a card:
+1 - (the union of the card's device operations' intervals, kernels and
+copies) / (the window's span), over the profiled steps, the mean over the
+cell's cards (`portbench.trace.Trace.busy_s`)."""
 
 UNIT, BETTER, SOURCE = "%", "lower", "device_trace"
 LAYER, MOVES = "device", "step_s"

@@ -1,5 +1,6 @@
 """Device kernels a step launches: the kernels the profiler records in
-the traced window (copies and fills not counted) over its steps."""
+the traced window on every card (copies and fills not counted) over its
+steps."""
 
 UNIT, BETTER, SOURCE = "launches/step", "lower", "device_trace"
 LAYER, MOVES = "step loop and host dispatch", "step_s"

@@ -1,6 +1,7 @@
 """Model FLOP utilisation of a training step, percent: the model's FLOPs
 a step needs over (the step's time in the traced run's unprofiled window
-x the chip's peak for products of the configuration's dtype).
+x the cell's chips x one chip's peak for products of the configuration's
+dtype).
 
 FLOPs: 6 N per distinct token trained (forward and backward) and 2 N per
 distinct token run forward only, N being the parameters that multiply a
@@ -30,4 +31,5 @@ def read(record):
     if not record.steps or record.trace is None:
         return None
     peak = PEAK_PRODUCT_FLOPS[getattr(torch, record.cell.config["model"]["dtype"])]
-    return 100.0 * step_flops(record.cell) / (record.window_s / record.steps * peak)
+    chips = record.cell.entry["chips"]
+    return 100.0 * step_flops(record.cell) / (record.window_s / record.steps * peak * chips)

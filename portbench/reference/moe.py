@@ -31,7 +31,15 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import const, mm, normal, rmsnorm, row_nll
 
-__all__ = ["param_spec", "active_params", "attention_flops", "loss"]
+__all__ = ["SMOKE", "SMOKE_SEQ", "param_spec", "active_params", "attention_flops", "loss"]
+
+# The family's model at a size the CPU tests hold (`portbench.smoke`), and
+# the length of its rows there.
+SMOKE = dict(family="moe", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+             d_ff=128, vocab=512, n_experts=4, experts_per_token=2, capacity_factor=1.25,
+             router_aux_weight=0.01, moe_groups=1, rope_theta=10000.0, mlp_act="swiglu",
+             norm="rmsnorm", tie_embeddings=False, dtype="float32", remat="full")
+SMOKE_SEQ = 64
 
 
 def param_spec(m: dict) -> Dict[str, tuple]:

@@ -25,7 +25,14 @@ from torch.utils.checkpoint import checkpoint
 
 from .common import const, mm, normal, rmsnorm, row_nll
 
-__all__ = ["param_spec", "active_params", "attention_flops", "loss"]
+__all__ = ["SMOKE", "SMOKE_SEQ", "param_spec", "active_params", "attention_flops", "loss"]
+
+# The family's model at a size the CPU tests hold (`portbench.smoke`), and
+# the length of its rows there: a multiple of ``ssm_chunk``.
+SMOKE = dict(family="ssm", n_layers=2, d_model=128, vocab=512, ssm_state=16, ssm_heads=8,
+             ssm_head_dim=32, ssm_expand=2, ssm_chunk=32, conv_width=4,
+             tie_embeddings=True, dtype="float32", remat="full")
+SMOKE_SEQ = 64
 
 
 def _dims(m: dict):

@@ -16,6 +16,13 @@ it is drawn from (row weights up to 262 times the uncoded 1/(K P) for
 some), and bfloat16 gradients summed under such cancelling weights carry
 that much more round-off, so a code drawn per run would change the work
 from seed to seed.
+
+A mix with ``cards`` C above 1 places agent a on card a % C
+(``ConsensusRuntime(devices=...)``): one replica of the model and one copy
+of z on each card, and each committing agent's z-delta copied to every
+card. The model, z and the served readings stay on the first card. On the
+CPU the C devices are the one CPU, listed C times. Without the key every
+agent runs on the one device.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from portbench.training import compare, warm_up
 from portbench.reference import coding, updates
 from portbench.traffic import generator
 
-__all__ = ["Program", "reference", "tokens", "warm_up", "compare"]
+__all__ = ["Program", "agent_devices", "reference", "tokens", "warm_up", "compare"]
 
 
 class Program:
@@ -43,7 +50,7 @@ class Program:
         self.rt = ConsensusRuntime(self.model, ConsensusConfig(
             n_agents=t["agents"], K=t["ecns"], S=t["stragglers"], scheme=t["scheme"],
             rho=t["rho"], c_tau=t["c_tau"], c_gamma=t["c_gamma"], mode=t["mode"],
-            seed=t["code_seed"]))
+            seed=t["code_seed"]), devices=agent_devices(t, device))
         self.state = self.rt.init_state()
         self.feed = generator.feed(t, cell.config["model"]["vocab"], seed)
         self.device = torch.device(device)
@@ -85,6 +92,19 @@ class Program:
 
     def close(self) -> None:
         del self.state, self.rt, self.model
+
+
+def agent_devices(traffic: dict, device):
+    """The devices the agents are placed on: None (the model's one device)
+    for a mix without ``cards`` above 1; else card 0 to cards - 1, or on
+    the CPU the one CPU listed ``cards`` times."""
+    cards = traffic.get("cards", 1)
+    if cards == 1:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", c) for c in range(cards)]
+    return [dev] * cards
 
 
 def tokens(traffic: dict) -> dict:

@@ -11,6 +11,9 @@ own range ``autograd::engine::evaluate_function: <node>``. A range's
 device time is that of the kernels launched inside it, nested ranges
 included.
 
+Each device operation keeps the card it ran on; busy time is read card
+by card and averaged over the cell's cards.
+
 Only ``key_averages``-sized results are kept: no chrome trace is written.
 """
 
@@ -44,27 +47,46 @@ class Trace:
     ranges: Dict[str, float]  # device us under each watched range
     counts: Dict[str, int]  # how often each watched range ran
     calls: Dict[str, list]  # each instrumented entry point's calls
+    card: List[int] = dataclasses.field(default_factory=list)  # each device op's card
+    n_cards: int = 1  # the cards the cell runs on, 0 to n_cards - 1
 
     @property
     def window_s(self) -> float:
         return (self.window[1] - self.window[0]) * 1e-6
 
+    def on_card(self, c: int) -> List[Tuple[str, float, float]]:
+        """The device operations that ran on card ``c`` (every one when
+        the trace holds no cards: one card)."""
+        if not self.card:
+            return list(self.device) if c == 0 else []
+        return [op for op, k in zip(self.device, self.card) if k == c]
+
     def busy_s(self) -> float:
-        return sum(e - s for s, e in union(self.device, *self.window)) * 1e-6
+        """Seconds of the window in which some operation ran on a card,
+        the mean over the cards."""
+        lo, hi = self.window
+        return sum(sum(e - s for s, e in union(self.on_card(c), lo, hi)) * 1e-6
+                   for c in range(self.n_cards)) / self.n_cards
 
     def kernel_launches(self) -> int:
         return sum(1 for n, _, _ in self.device if not n.startswith(_NOT_KERNELS))
 
     def breakdown(self, top: int = 10) -> dict:
-        """The device operations that took most time and the longest idle
-        gaps by the host range running at the gap's midpoint, in seconds."""
+        """The device operations that took most time (over every card) and
+        the longest idle gaps of a card by the host range running at the
+        gap's midpoint (named with the card when there are several), in
+        seconds."""
         lo, hi = self.window
         by_name = defaultdict(float)
         for n, s, e in self.device:
             by_name[n[:120]] += max(0.0, min(e, hi) - max(s, lo))
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-        idle = sorted(gaps(union(self.device, lo, hi), lo, hi), key=lambda g: g[0] - g[1])
-        named = [[self.host_at((s + e) / 2), (e - s) * 1e-6] for s, e in idle[:top]]
+        idle = [(s, e, c) for c in range(self.n_cards)
+                for s, e in gaps(union(self.on_card(c), lo, hi), lo, hi)]
+        idle.sort(key=lambda g: g[0] - g[1])
+        named = [[self.host_at((s + e) / 2) if self.n_cards == 1
+                  else f"card {c}: {self.host_at((s + e) / 2)}", (e - s) * 1e-6]
+                 for s, e, c in idle[:top]]
         return {"device_ops": [[n, us * 1e-6] for n, us in ops], "idle_gaps": named}
 
     def host_at(self, t: float) -> str:
@@ -158,29 +180,35 @@ def _device_us(ev) -> float:
 
 
 def profile_steps(step: Callable[[], float], n_steps: int,
-                  ops: Sequence[Tuple[str, str]] = ()) -> Trace:
-    """Run ``step`` ``n_steps`` times under the profiler and reduce."""
+                  ops: Sequence[Tuple[str, str]] = (), cards: int = 1) -> Trace:
+    """Run ``step`` ``n_steps`` times under the profiler and reduce; each
+    of the ``cards`` CUDA cards is synchronized before a clock is read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    def sync():
+        for c in range(cards):
+            torch.cuda.synchronize(c)
+
     with instrumented(ops) as calls:
-        torch.cuda.synchronize()
+        sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function(WINDOW):
                 t0 = time.perf_counter()
                 for _ in range(n_steps):
                     step()
-                torch.cuda.synchronize()
+                sync()
                 wall = time.perf_counter() - t0
     events = prof.events()
     win = next(e for e in events if e.name == WINDOW and e.device_type == DeviceType.CPU)
-    device, host = [], []
+    device, card, host = [], [], []
     ranges, counts = defaultdict(float), defaultdict(int)
     for e in events:
         s, t = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
             if not getattr(e, "is_user_annotation", False):  # a range mirrored on the device
                 device.append((e.name, s, t))
+                card.append(e.device_index)
             continue
         if e.thread == win.thread and e is not win:
             host.append((e.name, s, t))
@@ -195,7 +223,7 @@ def profile_steps(step: Callable[[], float], n_steps: int,
             ranges[key] += _device_us(e)
             counts[key] += 1
     return Trace(n_steps, wall, (win.time_range.start, win.time_range.end), device, host,
-                 dict(ranges), dict(counts), calls)
+                 dict(ranges), dict(counts), calls, card, cards)
 
 
 def op_roofline(trace: Optional[Trace], op: str, node: str, work) -> Optional[float]:
