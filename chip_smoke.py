@@ -37,8 +37,10 @@ Phases (any failure raises, exits non-zero and prints no result):
               `fleet_frontier`'s one group (R=12000, J=6, n=3), against
               `torch.bmm`; K3 (flash attention) at the qwen3-0.6b prefill
               step (B 4, S 2048, H 16, KV 8, hd 128) in bf16 and f32, with
-              a 512 window, at a ragged S = 1000, and at the MQA hd 256 and
-              hd 64 instances, against `scaled_dot_product_attention`,
+              a 512 window, at a ragged S = 1000, at the MQA hd 256 and
+              hd 64 instances, and at the granite-4.0-h-micro cell's step
+              (B 2, S 8192, H 32, KV 8, hd 64) in bf16, against
+              `scaled_dot_product_attention`,
               and (`[attention-scan]`) K3 in bf16 against SDPA at 8192
               tokens over S = 512 .. 8192, causal and not; K5
               (RG-LRU scan) at the recurrentgemma-9b prefill step (B 2,
@@ -47,8 +49,9 @@ Phases (any failure raises, exits non-zero and prints no result):
               scan) at the mamba2-1.3b training step (B 2, S 4096, H 64,
               P 64, N 128, chunk 256) in bf16 with each body (the
               tensor-core body, which bf16 training runs, in the `_tc`
-              rows, also with a head at A = -16 and at chunk 128 and 64;
-              the CUDA-core body, which f32 training runs)
+              rows, also with a head at A = -16, at chunk 128 and 64, and
+              at the granite cell's B 2, S 8192; the CUDA-core body, which
+              f32 training runs)
               and in f32, at a ragged S = 1000 and at a small shape,
               against the sequential recurrence in f64 (exact), in f32,
               and the chunked form. K4 and K5 have several launches a
@@ -58,9 +61,12 @@ Phases (any failure raises, exits non-zero and prints no result):
               their plain twins (``*_bwd_ref``): K3's at the qwen3-0.6b
               training step (B 4, S 2048, H 16, KV 8, hd 128, causal) in
               bf16 and f32 and at recurrentgemma-9b's (B 1, S 4096, H 16,
-              KV 1, hd 256, window 2048) in bf16, against the backward of
+              KV 1, hd 256, window 2048) and at the granite cell's (B 2,
+              S 8192, H 32, KV 8, hd 64) in bf16, against the backward of
               `scaled_dot_product_attention` (`enable_gqa`) at the same
-              shape; K5's at (1, 4096, 4096) f32 with h0 and dh_last.
+              shape; K4's at the mamba2 cells' call (B 8, S 2048) and the
+              granite cell's (B 2, S 8192) against its f64 twin; K5's at
+              (1, 4096, 4096) f32 with h0 and dh_last.
 3. fig5     — the paper's fig5 sweep at its registry defaults (1200 iters,
               S in {0,1,2,3} x 4 seeds = 16 runs) through `run_sweep` on
               the GPU in f64, held per run against the same sweep on the
@@ -124,6 +130,9 @@ Phases (any failure raises, exits non-zero and prints no result):
 9. serve-rg — the same for recurrentgemma-9b (batch 2, prompt 2048, 16
               new tokens): K5 launches once per recurrent layer (26), K3
               once per attention layer (12).
+9a. serve-granite — the same for granite-4.0-h-micro at full size (batch
+              2, prompt 8192, 32 new tokens): K3 once per attention layer
+              (4); its Mamba layers' prefill runs `ssd_chunked`.
 10. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
               parameters), batch 2 x 4096 tokens, remat "full": the loss
               and every parameter's gradient on the kernel path held
@@ -208,6 +217,15 @@ Phases (any failure raises, exits non-zero and prints no result):
               under both);
               consensus-whisper — phase 10c at 16 rows of 448 tokens with
               frames.
+10f. train-granite — granite-4.0-h-micro at full size at its benchmark
+              cell's step (bf16, batch 2 x 8192, remat "full"): 3 Adam
+              steps through the training entry point (launches, losses,
+              warm step, peak memory), one more step of its runtime with
+              the launch counts zeroed just before it (K4's tensor-core
+              forward 72 and backward 36, K3's forward 8 and backward 4),
+              a profile of one warm step; then kernel vs plain loss and
+              gradients at full width cut to 6 layers (5 Mamba, 1
+              attention) at the same rows, in bf16 and f32, as train-rg.
 11. card-vs-cpu — qwen3-0.6b at full width with 2 layers in f32 (batch 1,
               prompt 256), the recurrentgemma smoke config at head
               dim 64 (the smallest K3 takes) and whisper-medium at full
@@ -314,6 +332,10 @@ ATTN_SHAPES = {
     "phi35_step": (4, 2048, 32, 8, 128, None, torch.bfloat16),
     "mixtral_step": (1, 8192, 48, 8, 128, 4096, torch.bfloat16),
     "qwen2vl_step": (2, 2048, 64, 8, 128, None, torch.bfloat16),
+    # granite-4.0-h-micro's attention in its benchmark cell's step (2 rows
+    # of 8192, GQA 4, hd 64, no window); the model scales q so that K3's
+    # 1 / sqrt(hd) gives its 1/64.
+    "granite_step": (2, 8192, 32, 8, 64, None, torch.bfloat16),
 }
 # K5 shapes: (B, S, W, with h0). The first is recurrentgemma-9b's prefill
 # step of [serve-rg] (the model passes a zero h0).
@@ -334,7 +356,12 @@ ATTN_BWD_SHAPES = {
     "rg_train": (1, 4096, 16, 1, 256, 2048, torch.bfloat16),
     "hd64": (4, 2048, 16, 8, 64, None, torch.bfloat16),  # the qwen3 step at hd 64
     "phi35_train": (2, 2048, 32, 8, 128, None, torch.bfloat16),  # [train-phi35]'s step
+    "granite_train": (2, 8192, 32, 8, 64, None, torch.bfloat16),  # the granite cell's step
 }
+# The plain backward holds four (B, H, S, S) float32 tensors; above this
+# many bytes each it runs one row of the batch at a time (granite_train:
+# 16 GiB a tensor at the whole batch).
+ATTN_BWD_PLAIN_BYTES = 8 * 2**30
 SCAN_BWD_SHAPES = {"rg_train": (1, 4096, 4096)}
 # K3's backward: prep, the main body (bf16: the tensor-core body; f32: the
 # CUDA-core body), finish.
@@ -368,14 +395,18 @@ SSD_SHAPES = {
     "train_step_a16_tc": (2, 4096, 64, 64, 128, 256, torch.bfloat16, "tensor_cores"),
     "chunk128_tc": (2, 4096, 64, 64, 128, 128, torch.bfloat16, "tensor_cores"),
     "chunk64_tc": (2, 4096, 64, 64, 128, 64, torch.bfloat16, "tensor_cores"),
+    # granite-4.0-h-micro's Mamba-2 mixer in its benchmark cell's step (2
+    # rows of 8192, mamba2-1.3b's heads)
+    "granite_step_tc": (2, 8192, 64, 64, 128, 256, torch.bfloat16, "tensor_cores"),
 }
 # Shapes whose head 0 has A = -16, mamba2-1.3b's fastest decay (A_log =
 # log 16): its 256-step chunks sum a_t to thousands, where a decay factor
 # taken as a difference of cumulative sums loses its digits.
 SSD_A16 = ("train_step_a16_tc",)
-# K4's backward kernel at the benchmark cells' call (B, S, H, P, N, chunk):
-# 8 rows of 2,048 steps, mamba2-1.3b's heads, bf16. Its gradients are held
-# to the f64 twin at that call, at a quarter of its batch with a gradient of
+# K4's backward kernel at the benchmark cells' calls (B, S, H, P, N, chunk),
+# bf16: the mamba2 cells' 8 rows of 2,048 steps and the granite cell's 2
+# rows of 8,192, mamba2-1.3b's heads in both. Its gradients are held to the
+# f64 twin at each call, at a quarter of the first's batch with a gradient of
 # the final state, and at SSD_BWD_SMALL ((B, S, H, chunk, gh given) at P 64,
 # N 128: the card tests' cases, S a multiple of every chunk or ragged):
 # - dx, dBm, dCm case by case: as returned within SSD_BWD_FACTOR x the gap
@@ -394,7 +425,8 @@ SSD_A16 = ("train_step_a16_tc",)
 #   seven had the kernel beyond 2 x ssd_chunked's gap, as many the other
 #   way; the worst 5.0e-6 against 4.9e-6), so a rule per case would fail a
 #   correct kernel on some seeds.
-SSD_BWD_SHAPE = (8, 2048, 64, 64, 128, 256)
+SSD_BWD_SHAPES = {"cells_step": (8, 2048, 64, 64, 128, 256),
+                  "granite_step": (2, 8192, 64, 64, 128, 256)}
 SSD_BWD_SMALL = [(2, S, 4, chunk, with_gh) for chunk in (64, 128, 256) for S in (1024, 600)
                  for with_gh in (True, False)]
 SSD_BWD_FACTOR = 2.0
@@ -1835,8 +1867,15 @@ def phase_backward_kernels():
         def kern():
             return flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True, window=window)
 
+        # one row of the batch at a time where the whole batch's score
+        # tensors would not fit beside the rest (ATTN_BWD_PLAIN_BYTES)
+        rows_at_once = B if B * H * S * S * 4 <= ATTN_BWD_PLAIN_BYTES else 1
+
         def plain():
-            return ref.flash_attention_bwd_ref(qt, kt, vt, ot, dot, lse, True, window)
+            parts = [ref.flash_attention_bwd_ref(*(t[b:b + rows_at_once] for t in
+                                                   (qt, kt, vt, ot, dot, lse)), True, window)
+                     for b in range(0, B, rows_at_once)]
+            return tuple(torch.cat(g, 0) for g in zip(*parts))
 
         lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (qt, kt, vt))
         if window is None:
@@ -2097,7 +2136,7 @@ def phase_ssd_kernels():
                  y[:, :, 0], exact[0][:, :, 0].to(y.dtype), SSD_EXACT_TOL)
         del x, dt, A, Bm, Cm, y, h, exact, versus
         torch.cuda.empty_cache()
-    rows.append(ssd_bwd_row())
+    rows += ssd_bwd_rows()
     return rows
 
 
@@ -2110,26 +2149,26 @@ def ssd_bwd_work(B, S, H, P, N, chunk, dtype):
     return 2 * ((B * S * H * P + 2 * B * S * N) * es + (B * S * H + H) * 4), 2 * flops, peak
 
 
-def ssd_bwd_row():
-    """K4's backward kernel at the benchmark cells' call (SSD_BWD_SHAPE,
-    bf16, no gradient of the final state, head 0 at A = -16): its device
-    time beside its bound and the plain backward's time (autograd of
-    ``ssd_chunked`` on the same inputs, the path outside the tensor-core
-    domain), and its five gradients against the f64 twin
+def ssd_bwd_rows():
+    """K4's backward kernel at the benchmark cells' calls (SSD_BWD_SHAPES,
+    bf16, no gradient of the final state, head 0 at A = -16), a row each:
+    its device time beside its bound and the plain backward's time
+    (autograd of ``ssd_chunked`` on the same inputs, the path outside the
+    tensor-core domain), and its five gradients against the f64 twin
     ``ssd_scan_bwd_ref`` on that call's own outputs. Besides the timed
-    call, the same check at the cells' heads with a gradient of the final
-    state (a quarter of the batch) and at SSD_BWD_SMALL (module note):
-    dx, dBm and dCm case by case, as returned (bf16) within SSD_BWD_FACTOR
-    x the gap of autograd of float32 ``ssd_chunked`` and as the kernel's
-    float32 sums (``grad_dtype`` float32) within SSD_BWD_F32_TOL or
-    SSD_BWD_F32_FACTOR x that autograd's float32 gap; ddt and dA by the
-    worst gap over all the cases. ``max_abs_err`` is the timed
-    call's largest gap to the plain backward's gradients."""
+    calls, the same check at the first call's heads with a gradient of the
+    final state (a quarter of its batch) and at SSD_BWD_SMALL (module
+    note): dx, dBm and dCm case by case, as returned (bf16) within
+    SSD_BWD_FACTOR x the gap of autograd of float32 ``ssd_chunked`` and as
+    the kernel's float32 sums (``grad_dtype`` float32) within
+    SSD_BWD_F32_TOL or SSD_BWD_F32_FACTOR x that autograd's float32 gap;
+    ddt and dA by the worst gap over all the cases. ``max_abs_err`` is the
+    timed call's largest gap to the plain backward's gradients."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import KERNEL_NAMES, ssd_scan_bwd_tc_kernel
     from repro_torch.models.mamba2 import ssd_chunked
 
-    B, S, H, P, N, chunk = SSD_BWD_SHAPE
+    B, S, H, P, N, chunk = SSD_BWD_SHAPES["cells_step"]
     names = ("dx", "ddt", "dA", "dBm", "dCm")
 
     def inputs(batch, S, H, with_gh, seed):
@@ -2190,41 +2229,45 @@ def ssd_bwd_row():
         torch.cuda.empty_cache()
     log("[kernels] ssd_scan_bwd cases " + json.dumps(gaps))
 
-    x, dt, A, Bm, Cm, gy, _ = inputs(B, S, H, False, S * H + B)
-    label = "cells_step"
-    gaps[label], got = check(label, x, dt, A, Bm, Cm, gy, None, chunk)
-    plain = chunked(x, dt, A, Bm, Cm, gy, None, chunk)
-    max_abs = max(max_err(k, p) for k, p in zip(got, plain))
-    del got, plain
-    torch.cuda.empty_cache()
+    rows = []
+    for label, (B, S, H, P_, N_, chunk) in SSD_BWD_SHAPES.items():
+        assert (P_, N_) == (P, N)
+        x, dt, A, Bm, Cm, gy, _ = inputs(B, S, H, False, S * H + B)
+        gaps[label], got = check(label, x, dt, A, Bm, Cm, gy, None, chunk)
+        plain = chunked(x, dt, A, Bm, Cm, gy, None, chunk)
+        max_abs = max(max_err(k, p) for k, p in zip(got, plain))
+        del got, plain
+        torch.cuda.empty_cache()
+
+        def kern():
+            return ssd_scan_bwd_tc_kernel(x, dt, A, Bm, Cm, gy, None, chunk)
+
+        times = pass_times(f"ssd_scan_bwd {label}", kern, 10, KERNEL_NAMES["backward"])
+        row = dict(
+            name="ssd_scan_bwd", shape=label, B=B, S=S, H=H, P=P, N=N, chunk=chunk,
+            dtype="bfloat16", body="tensor_cores", normwise_err=gaps[label],
+            tol=dict(returned=f"{SSD_BWD_FACTOR} x ssd_chunked",
+                     float32=f"max({SSD_BWD_F32_TOL}, {SSD_BWD_F32_FACTOR} x ssd_chunked_f32)",
+                     log_decay=f"worst over the cases, {SSD_BWD_FACTOR} x ssd_chunked's"),
+            max_abs_err=max_abs, ms=cuda_ms(kern, 10), device_ms=times["device_ms"],
+            plain_ms=cuda_ms(lambda: chunked(x, dt, A, Bm, Cm, gy, None, chunk), 3),
+            library_ms=None,
+        )
+        roofline(row, *ssd_bwd_work(B, S, H, P, N, chunk, torch.bfloat16))
+        log("[kernels] " + json.dumps(row))
+        log("[kernels] ssd_scan_bwd passes " + json.dumps(dict(
+            shape=label, device_ms=times["device_ms"], all_kernels_ms=times["all_kernels_ms"],
+            passes=times["passes"])))
+        rows.append(row)
+        del x, dt, A, Bm, Cm, gy
+        torch.cuda.empty_cache()
     for n, w in worst.items():
         if not w["kernel"] <= SSD_BWD_FACTOR * w["ssd_chunked"]:
             raise AssertionError(f"ssd_scan_bwd {n}: worst gaps over the cases {w} "
                                  f"(tolerance {SSD_BWD_FACTOR} x ssd_chunked's)")
-
-    def kern():
-        return ssd_scan_bwd_tc_kernel(x, dt, A, Bm, Cm, gy, None, chunk)
-
-    times = pass_times("ssd_scan_bwd", kern, 10, KERNEL_NAMES["backward"])
-    row = dict(
-        name="ssd_scan_bwd", shape="cells_step", B=B, S=S, H=H, P=P, N=N, chunk=chunk,
-        dtype="bfloat16", body="tensor_cores", normwise_err=gaps[label],
-        worst_log_decay=worst,
-        tol=dict(returned=f"{SSD_BWD_FACTOR} x ssd_chunked",
-                 float32=f"max({SSD_BWD_F32_TOL}, {SSD_BWD_F32_FACTOR} x ssd_chunked_f32)",
-                 log_decay=f"worst over the cases, {SSD_BWD_FACTOR} x ssd_chunked's"),
-        max_abs_err=max_abs, ms=cuda_ms(kern, 10), device_ms=times["device_ms"],
-        plain_ms=cuda_ms(lambda: chunked(x, dt, A, Bm, Cm, gy, None, chunk), 3),
-        library_ms=None,
-    )
-    roofline(row, *ssd_bwd_work(B, S, H, P, N, chunk, torch.bfloat16))
-    log("[kernels] " + json.dumps(row))
-    log("[kernels] ssd_scan_bwd passes " + json.dumps(dict(
-        device_ms=times["device_ms"], all_kernels_ms=times["all_kernels_ms"],
-        passes=times["passes"])))
-    del x, dt, A, Bm, Cm, gy
-    torch.cuda.empty_cache()
-    return row
+    for row in rows:
+        row["worst_log_decay"] = worst
+    return rows
 
 
 def reset_launches():
@@ -2675,7 +2718,8 @@ def token_nll(model, cfg, batch) -> torch.Tensor:
     out = model.forward(batch["tokens"])
     hidden = out[0] if isinstance(out, tuple) else out
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    logits = (hidden @ head).float()
+    # granite divides the hidden state by its logits_scaling before the head
+    logits = (model._logits(hidden) if cfg.family == "granite" else hidden @ head).float()
     gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 
@@ -2701,7 +2745,8 @@ def kernel_vs_plain_training(label, model, cfg, batch, per_pass):
     (the first reading: plain bf16 vs f32 1.3e-6 apart, the kernel path
     1.2e-5 from each; its gradients well inside their bound); the mean's
     gap is printed beside it. ``per_pass``: each kernel's launches in one
-    loss + backward on the kernel path (none on the plain path)."""
+    loss + backward on the kernel path (none on the plain path), or
+    {dtype: that} where the dtypes launch different kernels (K4's body)."""
     dtypes = param_dtypes(model)
     out, nll = {}, {}
     for dtype in ("bfloat16", "float32"):
@@ -2713,7 +2758,7 @@ def kernel_vs_plain_training(label, model, cfg, batch, per_pass):
             loss, grads, launches, seconds = loss_and_grads(model, c, batch)
             want = {k: 0 for k in launches}
             if impl == "kernel":
-                want.update(per_pass)
+                want.update(per_pass.get(dtype, per_pass))
             if launches != want:
                 raise AssertionError(f"{label} {dtype} {impl}: launches {launches}, want {want}")
             log(f"[{label}] {dtype} {impl} path: loss {loss.item():.6f}, loss + backward "
@@ -2864,6 +2909,86 @@ def phase_train_rg(steps=5, n_layers=6):
     result.update(losses=losses, warm_step_s=warm, peak_bytes=peak,
                   launches_per_step={k: v // steps for k, v in launches.items()})
     del model, run
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_granite(steps=3, n_layers=6):
+    """granite-4.0-h-micro at its benchmark cell's step (bf16, 2 rows of
+    8192, remat "full"). The whole model first: ``steps`` Adam steps
+    through the training entry point, then one more step of its runtime
+    with the launch counts zeroed just before it (K4's tensor-core forward
+    twice and its backward kernel once a Mamba layer, K3's forward twice
+    and its backward once an attention layer), and a profile of one warm
+    step. Then the loss and gradients on the kernel path against the plain
+    path at full width cut to ``n_layers`` layers (five Mamba mixers and
+    the attention mixer at index 5), in bf16 and widened to f32, at the
+    same rows (`kernel_vs_plain_training`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import PlainRuntime
+    from repro_torch.kernels.ssd_scan import KERNEL_NAMES
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+
+    arch = "granite-4.0-h-micro"
+    full = dataclasses.replace(get_config(arch), remat="full")
+    B, S = 2, 8192
+
+    def per_pass(cfg):
+        Lm, La = cfg.layer_types.count("mamba"), cfg.layer_types.count("attention")
+        k3 = {"flash_attention": 2 * La, "flash_attention_bwd": La}
+        return {"bfloat16": {"ssd_scan_tc": 2 * Lm, "ssd_scan_bwd_tc": Lm, **k3},
+                "float32": {"ssd_scan": 2 * Lm, **k3}}
+
+    want_step = per_pass(full)["bfloat16"]
+    counters = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.main(["--arch", arch, "--batch", str(B), "--seq", str(S),
+                      "--steps", str(steps), "--log-every", "1", "--seed", "0"])
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want.update({k: steps * n for k, n in want_step.items()})
+    if launches != want:
+        raise AssertionError(f"train-granite: launches {launches}, want {want} ({steps} steps)")
+    losses = run["losses"]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train-granite: losses {losses}")
+    warm = float(np.median(run["step_s"][1:]))
+    log(f"[train-granite] {arch}: {full.param_count() / 1e9:.3f} B parameters, batch {B} x {S}, "
+        f"remat {full.remat}; {steps} steps: losses {json.dumps(losses)}, step s "
+        f"{json.dumps(run['step_s'])}, warm step {warm:.4f} s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+
+    rt = PlainRuntime(run["model"], lr=3e-4)
+    state = run["state"]
+    batch = lm_batch(full.vocab, B, S, seed=1)
+    counters = reset_launches()
+    state, _ = rt.train_step(state, batch)
+    torch.cuda.synchronize()
+    one_step = {k: v for k, v in read_launches(counters).items() if v}
+    if one_step != want_step:
+        raise AssertionError(f"train-granite: one step's launches {one_step}, want {want_step}")
+    log(f"[train-granite] launches in one step of the runtime (counts zeroed just before it): "
+        f"{json.dumps(one_step)}")
+    names = K3_KERNELS + K3_BWD_KERNELS + tuple(
+        sorted({n for group in KERNEL_NAMES.values() for n in group}))
+    prof = profile_share(lambda: rt.train_step(state, batch), top=8, named=names)
+    log("[train-granite] profile of one warm step: " + json.dumps(prof))
+    result = dict(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
+                  launches_per_step=one_step)
+    del run, rt, state, batch
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, n_layers=n_layers, layer_types=full.layer_types[:n_layers])
+    model = get_model(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(True)
+    log(f"[train-granite] depth cut {full.n_layers} -> {n_layers} layers "
+        f"({json.dumps(list(cfg.layer_types))}), full width: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, batch {B} x {S}")
+    result.update(kernel_vs_plain_training("train-granite", model, cfg,
+                                           lm_batch(cfg.vocab, B, S), per_pass(cfg)))
+    del model
     torch.cuda.empty_cache()
     return result
 
@@ -3710,10 +3835,15 @@ def main() -> int:
     # recurrentgemma-9b: 12 attention layers (K3) and 26 recurrent (K5).
     rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16,
                      {"flash_attention": 12, "rglru_scan": 26}, K5_KERNELS + K3_KERNELS)
+    # granite-4.0-h-micro: K3 once a layer of its 4 attention layers; its
+    # Mamba layers' prefill runs `ssd_chunked`, as mamba2's does.
+    phase_serve("serve-granite", "granite-4.0-h-micro", 2, 8192, 32, {"flash_attention": 4},
+                K3_KERNELS)
     mamba = phase_train_mamba2()
     phase_train_mamba2_witness()
     qwen_train = phase_train_qwen3()
     rg_train = phase_train_rg()
+    phase_train_granite()
     phase_consensus("consensus-mamba2", "mamba2-1.3b", {"ssd_scan_tc": 48},
                     {"ssd_scan_bwd_tc": 48})
     phase_consensus("consensus-qwen3", "qwen3-0.6b", {"flash_attention": 28},

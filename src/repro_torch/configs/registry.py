@@ -1,8 +1,9 @@
 """Architecture registry of the port (``get_config``, ``get_smoke_config``).
 
 Counterpart of `repro.configs.registry` without the dry-run's abstract
-input specs. ``ARCHS`` lists every arch of the reference; an unknown
-arch raises ``KeyError``.
+input specs. ``ARCHS`` lists every arch of the reference; ``PORT_ARCHS``
+the archs the port runs that the reference lacks. Both resolve; an
+unknown arch raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -28,11 +29,18 @@ _ARCH_MODULES = {
 
 ARCHS = tuple(_ARCH_MODULES)
 
+_PORT_ARCH_MODULES = {
+    "granite-4.0-h-micro": "granite_4_0_h_micro",
+}
+
+PORT_ARCHS = tuple(_PORT_ARCH_MODULES)
+
 
 def _module(arch: str):
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
-    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    name = _ARCH_MODULES.get(arch) or _PORT_ARCH_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS + PORT_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -11,6 +11,11 @@ it. Two things differ from the reference:
   and default to ``"kernel"``, so the serving entry point runs the
   kernels on the card. `ModelConfig.from_dict` maps the reference's
   ``"pallas"``/``"jnp"`` onto them.
+
+The port's own family ``granite`` (no counterpart in the reference) takes
+its extra fields in the subclass `GraniteConfig`, which
+`ModelConfig.from_dict` returns for ``family="granite"``; the fields of
+every other family's config stay the reference's, key for key.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
-__all__ = ["ModelConfig", "IMPLS"]
+__all__ = ["ModelConfig", "GraniteConfig", "IMPLS", "LAYER_TYPES"]
 
 IMPLS = ("kernel", "plain")
 # The reference's kernel-backend names and the port's.
@@ -30,7 +35,7 @@ _IMPL_OF_REFERENCE = {"pallas": "kernel", "jnp": "plain"}
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | granite
     n_layers: int
     d_model: int
     vocab: int
@@ -88,8 +93,18 @@ class ModelConfig:
     def from_dict(cls, d: Mapping[str, Any]) -> "ModelConfig":
         """Build from a plain dict of the reference's fields, e.g.
         ``dataclasses.asdict(repro_cfg)``: ``"pallas"`` becomes
-        ``"kernel"`` and ``"jnp"`` becomes ``"plain"``."""
+        ``"kernel"`` and ``"jnp"`` becomes ``"plain"``. A dict of family
+        ``granite`` gives a `GraniteConfig`."""
         d = dict(d)
+        if d.get("family") == "granite":
+            cls = GraniteConfig
+            d["layer_types"] = tuple(d.get("layer_types", ()))
+            # the published configs name their position embedding; the
+            # family runs without one (no rotary embedding)
+            kind = d.pop("position_embedding_type", "nope")
+            if kind != "nope":
+                raise ValueError("the granite family runs without a position embedding "
+                                 f"('nope'), got {kind!r}")
         for key in ("attn_impl", "ssm_impl"):
             if key in d:
                 d[key] = _IMPL_OF_REFERENCE.get(d[key], d[key])
@@ -171,3 +186,47 @@ class ModelConfig:
             dec = L * (attn + attn + 2 * D * F + 3 * D)
             return n + enc + dec + self.encoder_positions * D
         return n + L * (attn + mlp + norms) + D
+
+
+LAYER_TYPES = ("mamba", "attention")
+
+
+@dataclasses.dataclass(frozen=True)
+class GraniteConfig(ModelConfig):
+    """The ``granite`` family (IBM Granite 4.0 hybrids, HF
+    ``granitemoehybrid`` without experts): Mamba-2 and attention mixers in
+    the order of ``layer_types``, a SwiGLU MLP of ``d_ff`` after each, and
+    the muP scalars of the published configs. The mixers' widths are the
+    shared fields (``ssm_*``, ``conv_width``; ``n_heads``, ``n_kv_heads``,
+    ``head_dim``)."""
+
+    layer_types: Tuple[str, ...] = ()  # "mamba" | "attention", one per layer
+    embedding_multiplier: float = 1.0  # the token embeddings are scaled by it
+    residual_multiplier: float = 1.0  # each mixer's and MLP's output before its residual add
+    attention_multiplier: float = 0.0  # softmax scale of the scores; set by every config
+    logits_scaling: float = 1.0  # the logits are divided by it
+    norm_eps: float = 1e-5  # every RMSNorm's epsilon
+
+    def validate(self) -> None:
+        super().validate()
+        if len(self.layer_types) != self.n_layers or not set(self.layer_types) <= set(LAYER_TYPES):
+            raise ValueError(f"layer_types must give one of {LAYER_TYPES} for each of "
+                             f"{self.n_layers} layers, got {self.layer_types!r}")
+        assert self.ssm_state > 0 and self.ssm_heads > 0 and self.d_ff > 0
+        assert self.attention_multiplier > 0
+        assert self.n_heads > 0 and self.n_heads % max(self.n_kv_heads, 1) == 0
+        assert self.mlp_act == "swiglu" and self.norm == "rmsnorm"
+
+    def param_count(self) -> int:
+        """Every parameter the model holds: the embedding (and an untied
+        head), the final norm, and per layer its two norms, its mixer and
+        its MLP."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        di, N, H, W = self.ssm_expand * D, self.ssm_state, self.ssm_heads, self.conv_width
+        conv_dim = di + 2 * N
+        hd, nh, nkv = self.d_head, self.n_heads, self.n_kv_heads
+        mamba = D * (2 * di + 2 * N + H) + (W + 1) * conv_dim + 3 * H + di + di * D
+        attn = 2 * D * nh * hd + 2 * D * nkv * hd
+        per = {"mamba": mamba, "attention": attn}
+        n = V * D * (1 if self.tie_embeddings else 2) + D
+        return n + sum(per[t] + 3 * D * F + 2 * D for t in self.layer_types)

@@ -1,8 +1,11 @@
 """Mamba-2 (SSD, state-space duality) language model [arXiv:2405.21060]
 (port of `repro.models.mamba2`).
 
-Block = in_proj -> causal depthwise conv (x, B, C) -> SSD -> gated RMSNorm
--> out_proj. ``Mamba2`` is an ``nn.Module`` whose ``layers`` is an
+Block = RMSNorm -> mixer -> residual, the mixer being in_proj -> causal
+depthwise conv (x, B, C) -> SSD -> gated RMSNorm -> out_proj
+(``ssm_mixer``, with ``ssm_mixer_prefill`` / ``ssm_mixer_step`` for
+serving; the granite family calls the same mixer with the gate before the
+norm). ``Mamba2`` is an ``nn.Module`` whose ``layers`` is an
 ``nn.ModuleList`` of per-layer ``Mamba2Block``s with the reference's
 parameter names and ``(in, out)`` weights, so
 `repro_torch.models.params.from_reference` loads a layer as a slice of the
@@ -55,7 +58,8 @@ from .layers import (
 )
 from .losses import lm_loss
 
-__all__ = ["Mamba2Block", "Mamba2", "ssd_chunked", "ssd_decode"]
+__all__ = ["Mamba2Block", "Mamba2", "ssd_chunked", "ssd_decode", "mixer_spec", "init_A_log",
+           "ssm_mixer", "ssm_mixer_prefill", "ssm_mixer_step"]
 
 
 def _dims(cfg: ModelConfig):
@@ -175,53 +179,109 @@ def ssd_decode(
 # --------------------------------------------------------------------------
 
 
+def mixer_spec(cfg: ModelConfig) -> dict:
+    """The Mamba-2 mixer's parameters (``A_log``, ``dt_bias`` and
+    ``D_skip`` in float32 whatever the model dtype)."""
+    dt = cfg.torch_dtype
+    D, L, W = cfg.d_model, cfg.n_layers, cfg.conv_width
+    di, H, P, N, conv_dim = _dims(cfg)
+    f32 = torch.float32
+    return {
+        # in_proj packs (z, x, B, C, dt): di + di + N + N + H columns
+        "w_in": _normal((D, 2 * di + 2 * N + H), 0.02, dt),
+        "conv_w": _normal((W, conv_dim), 0.2, dt),
+        "conv_b": _const((conv_dim,), 0.0, dt),
+        "A_log": _const((H,), 0.0, f32),  # set by init_A_log
+        "dt_bias": _const((H,), 0.0, f32),
+        "D_skip": _const((H,), 1.0, f32),
+        "norm": _const((di,), 0.0, dt),
+        "w_out": _normal((di, D), 0.02 / max(L, 1) ** 0.5, dt),
+    }
+
+
+@torch.no_grad()
+def init_A_log(A_log: torch.Tensor) -> None:
+    """The reference's A_log: log of H values evenly spaced over [1, 16]."""
+    a = torch.log(torch.linspace(1.0, 16.0, A_log.shape[0], dtype=torch.float64))
+    A_log.copy_(a.to(torch.float32))
+
+
 class Mamba2Block(ParamModule):
-    """One mamba2 layer. ``A_log``, ``dt_bias`` and ``D_skip`` are float32
-    whatever the model dtype, with the reference's exact values."""
+    """One mamba2 layer: its pre-norm ``ln`` and the mixer's parameters,
+    with the reference's exact values."""
 
     def __init__(self, cfg: ModelConfig, device) -> None:
-        dt = cfg.torch_dtype
-        D, L, W = cfg.d_model, cfg.n_layers, cfg.conv_width
-        di, H, P, N, conv_dim = _dims(cfg)
-        f32 = torch.float32
-        spec = {
-            "ln": _const((D,), 0.0, dt),
-            # in_proj packs (z, x, B, C, dt): di + di + N + N + H columns
-            "w_in": _normal((D, 2 * di + 2 * N + H), 0.02, dt),
-            "conv_w": _normal((W, conv_dim), 0.2, dt),
-            "conv_b": _const((conv_dim,), 0.0, dt),
-            "A_log": _const((H,), 0.0, f32),  # set in init_
-            "dt_bias": _const((H,), 0.0, f32),
-            "D_skip": _const((H,), 1.0, f32),
-            "norm": _const((di,), 0.0, dt),
-            "w_out": _normal((di, D), 0.02 / max(L, 1) ** 0.5, dt),
-        }
+        spec = {"ln": _const((cfg.d_model,), 0.0, cfg.torch_dtype), **mixer_spec(cfg)}
         super().__init__(spec, device)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Mamba2Block":
         super().init_(generator)
-        H = self.A_log.shape[0]
-        a = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float64))
-        self.A_log.copy_(a.to(torch.float32))
+        init_A_log(self.A_log)
         return self
 
 
 def _block_seq(cfg: ModelConfig, lp, u: torch.Tensor) -> torch.Tensor:
     """Full-sequence mamba2 block (pre-norm residual), the training path."""
+    return u + ssm_mixer(cfg, lp, rmsnorm(u, lp.ln))
+
+
+def _mixer_in(cfg: ModelConfig, lp, h: torch.Tensor):
+    """The mixer up to the scan, on a full sequence: (z, the pre-conv
+    (x, B, C) whose tail a cache keeps, x (B, S, H, P), dt, A, B, C)."""
     di, H, P, N, conv_dim = _dims(cfg)
-    B_, S, _ = u.shape
-    h = rmsnorm(u, lp.ln)
-    z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
-    xBC = F.silu(causal_conv(xBC, lp.conv_w, lp.conv_b))
+    B_, S, _ = h.shape
+    z, xBC_raw, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
+    xBC = F.silu(causal_conv(xBC_raw, lp.conv_w, lp.conv_b))
     x, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     dt, A = _dt_A(lp, dt_raw)
-    xh = x.reshape(B_, S, H, P)
+    return z, xBC_raw, x.reshape(B_, S, H, P), dt, A, Bm, Cm
+
+
+def ssm_mixer(cfg: ModelConfig, lp, h: torch.Tensor, norm_before_gate: bool = True,
+              eps: float = 1e-6) -> torch.Tensor:
+    """The Mamba-2 mixer on a normed full sequence h (B, S, D), the
+    training path: in-projection, causal conv, the SSD scan (K4 through
+    ``ops.ssd_scan`` for ``ssm_impl="kernel"``, ``ssd_chunked`` for
+    ``"plain"``), gated RMSNorm (`_gated_out`) and out-projection; no
+    residual. Callers reach it through this module at call time, so a
+    profiler's wrapper of the module attribute sees every call."""
+    z, _, xh, dt, A, Bm, Cm = _mixer_in(cfg, lp, h)
     if cfg.ssm_impl == "kernel":
         y, _ = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
         y, _ = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
-    return _gated_out(lp, u, y, xh, z)
+    return _gated_out(lp, y, xh, z, norm_before_gate, eps)
+
+
+def ssm_mixer_prefill(cfg: ModelConfig, lp, h: torch.Tensor, norm_before_gate: bool = True,
+                      eps: float = 1e-6):
+    """The mixer on a prompt (through ``ssd_chunked``, which gives the
+    final state): (out, final SSM state (B, H, P, N), the conv tail
+    (B, W - 1, conv_dim))."""
+    S = h.shape[1]
+    z, xBC_raw, xh, dt, A, Bm, Cm = _mixer_in(cfg, lp, h)
+    y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    tail = xBC_raw[:, S - (cfg.conv_width - 1):]
+    return _gated_out(lp, y, xh, z, norm_before_gate, eps), state, tail
+
+
+def ssm_mixer_step(cfg: ModelConfig, lp, h: torch.Tensor, ssm: torch.Tensor,
+                   conv: torch.Tensor, norm_before_gate: bool = True, eps: float = 1e-6):
+    """The mixer on one token h (B, 1, D) from the SSM state and the conv
+    tail: (out, new state, new tail)."""
+    di, H, P, N, conv_dim = _dims(cfg)
+    B_ = h.shape[0]
+    z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
+    window = torch.cat([conv, xBC], dim=1)  # (B, W, conv)
+    ct = widened(window.dtype)
+    conv_out = torch.einsum("bwc,wc->bc", window.to(ct), lp.conv_w.to(ct)) + lp.conv_b.to(ct)
+    xBC = F.silu(conv_out)[:, None].to(h.dtype)
+    xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
+    dt, A = _dt_A(lp, dt_raw)
+    xh = xs.reshape(B_, 1, H, P)
+    y, ssm = ssd_decode(xh, dt, A, Bm, Cm, ssm)
+    return _gated_out(lp, y, xh, z, norm_before_gate, eps), ssm, window[:, 1:]
 
 
 def _dt_A(lp, dt_raw: torch.Tensor):
@@ -233,13 +293,19 @@ def _dt_A(lp, dt_raw: torch.Tensor):
     return dt, -torch.exp(lp.A_log.to(ct))
 
 
-def _gated_out(lp, u, y, xh, z):
-    """y + D x, gated RMSNorm, out_proj, residual."""
-    B_, S = u.shape[:2]
+def _gated_out(lp, y, xh, z, norm_before_gate: bool, eps: float):
+    """y + D x, the gated RMSNorm over all di channels, out_proj. With
+    ``norm_before_gate`` (mamba2): RMSNorm(y) * SiLU(z), y rounded to the
+    model dtype first; without (granite): RMSNorm(y * SiLU(z)) in the
+    scan's float32, then rounded."""
+    B_, S = z.shape[:2]
     y = y + lp.D_skip.to(y.dtype)[None, None, :, None] * xh.to(y.dtype)
-    y = y.reshape(B_, S, -1).to(u.dtype)
-    y = rmsnorm(y, lp.norm) * F.silu(z)
-    return u + y @ lp.w_out
+    if norm_before_gate:
+        y = y.reshape(B_, S, -1).to(z.dtype)  # the float32 sum is freed here
+        y = rmsnorm(y, lp.norm, eps) * F.silu(z)
+    else:
+        y = rmsnorm(y.reshape(B_, S, -1) * F.silu(z.to(y.dtype)), lp.norm, eps).to(z.dtype)
+    return y @ lp.w_out
 
 
 class Mamba2(ParamModule):
@@ -308,21 +374,12 @@ class Mamba2(ParamModule):
         recurrent state cache (``extra_slots`` is accepted for API
         uniformity; the state is O(1))."""
         cfg = self.cfg
-        di, H, P, N, conv_dim = _dims(cfg)
         B_, S = tokens.shape
         x = self.embed[tokens.long()]
         cache = self.init_cache(B_, S)
         for l, lp in enumerate(self.layers):
-            u = x
-            h = rmsnorm(u, lp.ln)
-            z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
-            cache["conv"][l] = xBC[:, S - (cfg.conv_width - 1):]
-            xBC = F.silu(causal_conv(xBC, lp.conv_w, lp.conv_b))
-            xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-            dt, A = _dt_A(lp, dt_raw)
-            xh = xs.reshape(B_, S, H, P)
-            y, cache["ssm"][l] = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
-            x = _gated_out(lp, u, y, xh, z)
+            y, cache["ssm"][l], cache["conv"][l] = ssm_mixer_prefill(cfg, lp, rmsnorm(x, lp.ln))
+            x = x + y
         x = rmsnorm(x, self.final_norm)
         cache["len"] = S
         return self._logits(x[:, -1:]), cache
@@ -332,25 +389,11 @@ class Mamba2(ParamModule):
         """One decode step (token (B, 1)); updates the cache in place.
         Returns (logits (B, 1, V), cache)."""
         cfg = self.cfg
-        di, H, P, N, conv_dim = _dims(cfg)
-        B_ = token.shape[0]
         x = self.embed[token.long()]  # (B, 1, D)
         for l, lp in enumerate(self.layers):
-            u = x
-            h = rmsnorm(u, lp.ln)
-            z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
-            window = torch.cat([cache["conv"][l], xBC], dim=1)  # (B, W, conv)
-            ct = widened(window.dtype)
-            conv_out = torch.einsum(
-                "bwc,wc->bc", window.to(ct), lp.conv_w.to(ct)
-            ) + lp.conv_b.to(ct)
-            xBC = F.silu(conv_out)[:, None].to(u.dtype)
-            xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
-            dt, A = _dt_A(lp, dt_raw)
-            xh = xs.reshape(B_, 1, H, P)
-            y, cache["ssm"][l] = ssd_decode(xh, dt, A, Bm, Cm, cache["ssm"][l])
-            x = _gated_out(lp, u, y, xh, z)
-            cache["conv"][l] = window[:, 1:]
+            y, cache["ssm"][l], cache["conv"][l] = ssm_mixer_step(
+                cfg, lp, rmsnorm(x, lp.ln), cache["ssm"][l], cache["conv"][l])
+            x = x + y
         x = rmsnorm(x, self.final_norm)
         cache["len"] += 1
         return self._logits(x), cache

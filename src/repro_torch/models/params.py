@@ -11,6 +11,9 @@ arrays per layer and nothing is transposed:
   hybrid:     rec[name][g, r], attn[name][g],  -> rec[g][r], attn[g],
               tail_rec[name][t]                  tail_rec[t]
   audio:      enc[name][l], dec[name][l]       -> enc[l].<name>, dec[l].<name>
+  granite:    mamba[name][i], attention[name][j] -> layers[l].<name>, the layers
+              of each kind stacked apart in order (the port's own family: its
+              checkpoints have this layout, no reference has one)
 
 Every parameter of the port must be set and every array of the tree
 used, or it raises. ``to_reference(model)`` is the inverse: the
@@ -100,6 +103,10 @@ def reference_index(model) -> Dict[str, tuple]:
         }
 
     out = own(model, (), (), "")
+    if model.cfg.family == "granite":
+        for l, blk in enumerate(model.layers):
+            out.update(own(blk, (blk.kind,), (model.slots[l],), f"layers.{l}."))
+        return out
     if model.cfg.family == "audio":
         for stack in ("enc", "dec"):
             for l, blk in enumerate(getattr(model, stack)):

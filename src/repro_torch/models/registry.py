@@ -1,5 +1,5 @@
 """Model construction for the ported families (port of
-`repro.models.registry`).
+`repro.models.registry`), and the port's own ``granite`` family.
 
 ``get_model(cfg, device=..., generator=...)`` returns the family's
 ``nn.Module`` with its weights drawn on ``device`` from ``generator``
@@ -17,6 +17,7 @@ from typing import Optional, Union
 import torch
 
 from .config import ModelConfig
+from .granite import Granite
 from .mamba2 import Mamba2
 from .rglru import RecurrentGemma
 from .transformer import Transformer
@@ -31,6 +32,7 @@ FAMILIES = {
     "ssm": Mamba2,
     "hybrid": RecurrentGemma,
     "audio": Whisper,
+    "granite": Granite,  # the port's own family (no counterpart in the reference)
 }
 
 

@@ -46,21 +46,18 @@ from .config import ModelConfig
 from .layers import (
     ParamModule,
     _const,
-    _expand_kv,
     _normal,
     apply_rope,
-    blocked_attention,
     causal_conv,
     decode_attention,
     gelu,
     maybe_remat,
     mlp_apply,
-    naive_attention,
     rmsnorm,
     widened,
 )
 from .losses import lm_loss
-from .transformer import _to_ring
+from .transformer import _to_ring, attend
 
 __all__ = ["RecBlock", "AttnBlock", "RecurrentGemma", "rglru_seq", "rglru_step"]
 
@@ -218,18 +215,7 @@ def _attn_block_seq(cfg: ModelConfig, lp, x):
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     q = apply_rope(q, pos, cfg.rope_theta)
     k_ = apply_rope(k_, pos, cfg.rope_theta)
-    if cfg.attn_impl == "kernel":
-        # MQA inside the kernel: the one kv head is read in place.
-        o = ops.flash_attention(q, k_, v, causal=True, window=cfg.sliding_window)
-    else:  # the reference's own path (it has no kernel on this layer)
-        kx, vx = _expand_kv(k_, cfg.q_per_kv), _expand_kv(v, cfg.q_per_kv)
-        if S > 1024 and S % cfg.attn_block_q == 0 and S % cfg.attn_block_kv == 0:
-            o = blocked_attention(
-                q, kx, vx, causal=True, window=cfg.sliding_window,
-                block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-            )
-        else:
-            o = naive_attention(q, kx, vx, causal=True, window=cfg.sliding_window)
+    o = attend(cfg, q, k_, v)  # the plain path is the reference's (it has no kernel here)
     x = x + o.reshape(B, S, H * hd) @ lp.wo
     x = x + mlp_apply(rmsnorm(x, lp.ln2), lp, "geglu")
     return x, (k_, v)

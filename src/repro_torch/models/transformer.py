@@ -67,7 +67,7 @@ from .layers import (
 )
 from .losses import lm_loss
 
-__all__ = ["DenseBlock", "Transformer", "cache_capacity", "_to_ring"]
+__all__ = ["DenseBlock", "Transformer", "attend", "cache_capacity", "_to_ring"]
 
 
 class DenseBlock(ParamModule):
@@ -140,21 +140,27 @@ def _self_attention(cfg: ModelConfig, lp, x, positions):
     B, S, _ = x.shape
     h = _norm(cfg, x, lp.ln1, getattr(lp, "ln1_b", None))
     q, k, v = _attn_qkv(cfg, lp, h, positions)
-    if cfg.attn_impl == "kernel":
-        # GQA inside the kernel: K/V are read at their own head count.
-        o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    else:
-        kx = _expand_kv(k, cfg.q_per_kv)
-        vx = _expand_kv(v, cfg.q_per_kv)
-        if S > 1024 and S % cfg.attn_block_q == 0 and S % cfg.attn_block_kv == 0:
-            o = blocked_attention(
-                q, kx, vx, causal=True, window=cfg.sliding_window,
-                block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
-            )
-        else:
-            o = naive_attention(q, kx, vx, causal=True, window=cfg.sliding_window)
-    o = o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp.wo
+    o = attend(cfg, q, k, v).reshape(B, S, cfg.n_heads * cfg.d_head) @ lp.wo
     return x + o, (k, v)
+
+
+def attend(cfg: ModelConfig, q, k, v):
+    """Causal (and, with ``sliding_window``, windowed) attention over a
+    full sequence, q (B, S, H, hd), k/v (B, S, KV, hd): the flash-attention
+    kernel for ``attn_impl="kernel"``, which reads K/V at their own head
+    count (GQA, MQA), else the plain path (full-matrix, or blocked above
+    1024 tokens, as in the reference)."""
+    S = q.shape[1]
+    if cfg.attn_impl == "kernel":
+        return ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    kx = _expand_kv(k, cfg.q_per_kv)
+    vx = _expand_kv(v, cfg.q_per_kv)
+    if S > 1024 and S % cfg.attn_block_q == 0 and S % cfg.attn_block_kv == 0:
+        return blocked_attention(
+            q, kx, vx, causal=True, window=cfg.sliding_window,
+            block_q=cfg.attn_block_q, block_kv=cfg.attn_block_kv,
+        )
+    return naive_attention(q, kx, vx, causal=True, window=cfg.sliding_window)
 
 
 def _ffn(cfg: ModelConfig, lp, x):

@@ -17,7 +17,10 @@ tests/test_torch_consensus.py).
   differ by float32 round-off, about 1e-6);
 - three steps of the launcher's ``run_consensus`` against the
   reference's (losses and residuals relative 1e-4, z normwise 1e-4, the
-  checkpoint bit for bit the final z).
+  checkpoint bit for bit the final z);
+- the port's own granite family, which the reference lacks: the
+  launcher's consensus mode on its smoke model, and the first step's loss
+  and z against `tests/granite_reference.py`'s loss and gradient.
 """
 
 import dataclasses
@@ -34,10 +37,12 @@ from repro.distributed import ConsensusConfig as RConfig
 from repro.distributed import ConsensusRuntime as RRuntime
 from repro.launch import train as r_train
 from repro.models import get_model as r_get_model
+import granite_reference
 from repro_torch.checkpoint import restore_step
 from repro_torch.distributed import ConsensusConfig, ConsensusRuntime
+from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train
-from repro_torch.models import ModelConfig, from_reference
+from repro_torch.models import ModelConfig, from_reference, get_model
 from repro_torch.models.params import (
     consensus_state_from_reference,
     consensus_state_to_reference,
@@ -173,3 +178,44 @@ def test_run_consensus_matches_reference(tmp_path, capsys):
     for name, w in _flat(tree).items():
         assert np.array_equal(_np(w), _np(z_t[name])), name
     assert "residual" in capsys.readouterr().out
+
+
+def test_granite_consensus_step_follows_the_plain_reference():
+    """One incremental step of granite's smoke model (float32) on the
+    launcher's first coded batch. From x = z = the weights and y = 0,
+    eqs. 5a, 5b and 4c move z by -(1 + gamma) g / (A (rho + tau)), g the
+    committing agent 0's decoded gradient: that gradient and the step's
+    loss (the agents' mean) are held to the plain reference's on the same
+    rows and row weights. Tolerances: the loss to float32 round-off
+    (1e-6); z's move normwise 1e-4 (the gradients' float32 round-off,
+    as in ``_check_state``) plus the float32 roundings of eqs. 5a, 5b and
+    4c, each within half an ulp of |z| (once 5a's sums are divided back by
+    rho + tau), read back as a move: a few of them, 2^-21 max |z| times
+    the scale, since the move is some 100 x smaller than the weights."""
+    cfg = get_smoke_config("granite-4.0-h-micro")
+    model = get_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ccfg = ConsensusConfig(n_agents=2, K=4, S=1, scheme="cyclic", rho=1.0, c_tau=20.0,
+                           c_gamma=0.1, mode="incremental")
+    rt = ConsensusRuntime(model, ccfg)
+    args = _args(steps=1)
+    batch, alive = next(train.consensus_batches(args, ccfg.code(), cfg.vocab, cfg))
+    state, m = rt.train_step(rt.init_state(), {k: torch.from_numpy(v) for k, v in
+                                               batch.items()}, alive)
+    rows = batch["tokens"].shape[0] // 2
+    w = torch.from_numpy(rt.row_weights(alive, rows))
+    tok, lab = (torch.from_numpy(batch[k]) for k in ("tokens", "labels"))
+    p = {n: t.clone().requires_grad_() for n, t in start.items()}
+    losses = [granite_reference.loss(p, tok[a * rows:(a + 1) * rows],
+                                     lab[a * rows:(a + 1) * rows],
+                                     dataclasses.asdict(cfg), row_weights=w[a])
+              for a in range(2)]
+    want = float(sum(losses).detach()) / 2
+    assert abs(float(m["loss"]) - want) <= 1e-6 * want
+    losses[0].backward()
+    scale = 2 * (1.0 + 20.0) / (1 + float(m["gamma"]))
+    for n, t in start.items():
+        g = p[n].grad
+        err = float(((t - state["z"][n]) * scale - g).abs().max())
+        bound = 1e-4 * float(g.abs().max()) + scale * 2.0**-21 * float(t.abs().max())
+        assert err <= bound, (n, err, bound)

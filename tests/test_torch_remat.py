@@ -28,11 +28,23 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
-from repro_torch.configs import ARCHS, get_smoke_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_smoke_config
 from repro_torch.launch.serve import stub_embeds
 from repro_torch.models import get_model
 
 PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The smoke models' operations are small: with several test processes
+    at once, a thread a core in each makes every one wait on the others
+    (as in portbench/conftest.py); one thread changes no result compared
+    here, both sides of each comparison run in it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 class _CountProducts(TorchDispatchMode):
@@ -65,7 +77,7 @@ def _model(arch, remat):
     return model.requires_grad_(True)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_dots_and_full_give_the_loss_and_gradients_of_none_bit_for_bit(arch):
     out = {}
     for remat in ("none", "dots", "full"):
@@ -94,7 +106,7 @@ def _counts(arch, remat):
     return fwd.n, bwd.n
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_dots_saves_the_products_that_full_recomputes(arch):
     fwd, bwd_none = _counts(arch, "none")
     fwd_dots, bwd_dots = _counts(arch, "dots")

@@ -10,7 +10,7 @@ there is none (it never falls back to the CPU on its own).
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, get_smoke_config
+from repro_torch.configs import ARCHS, PORT_ARCHS, get_smoke_config
 from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
 from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
 from repro_torch.launch import serve
@@ -25,7 +25,7 @@ def _prompt_len(cfg, n: int) -> int:
     return max(n, 20) if cfg.modality == "vision_stub" else n
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_cli_serves_on_cpu_deterministically(arch, capsys):
     before = (dict(FA_LAUNCHES), dict(RG_LAUNCHES))
     n = _prompt_len(get_smoke_config(arch), 12)
@@ -42,7 +42,7 @@ def test_cli_serves_on_cpu_deterministically(arch, capsys):
     assert f"served {get_smoke_config(arch).name} on cpu batch=2 prompt={n} new=5" in out
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_serve_matches_prefill_plus_decode(arch):
     """serve() is prefill then greedy decode: the first token is the
     prefill's argmax, and a prompt one token longer reproduces step 2."""
