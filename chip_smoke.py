@@ -12,7 +12,8 @@ Phases (any failure raises, exits non-zero and prints no result):
               sm_90a, one process per source, all at once), print the
               build times and ptxas reports, and count each K4 kernel's
               HGMMA instructions in `cuobjdump -sass` (the tensor-core
-              body's two kernels must issue some).
+              body's two kernels must hold some); the conv + SiLU
+              kernels must be in their library's SASS.
 1a. analysis — the port's trace contracts on the card
               (`repro_torch.analysis`): the AST lint of `src/repro_torch`
               (no finding), then the step audit of the reference's ten
@@ -66,7 +67,16 @@ Phases (any failure raises, exits non-zero and prints no result):
               `scaled_dot_product_attention` (`enable_gqa`) at the same
               shape; K4's at the mamba2 cells' call (B 8, S 2048) and the
               granite cell's (B 2, S 8192) against its f64 twin; K5's at
-              (1, 4096, 4096) f32 with h0 and dh_last.
+              (1, 4096, 4096) f32 with h0 and dh_last. The Mamba-2
+              mixer's conv + SiLU (`[kernels] causal_conv_silu*`) at the
+              mamba2 cells' call (B 8, S 2048, C 4352, W 4) and the
+              granite cell's (B 2, S 8192), bf16, read through the
+              in-projection's column slice: the forward bit for bit the
+              plain expression, the backward's gradients against the f64
+              twin within 2 x the gap of autograd of the expression, the
+              same bits on a
+              second run, each beside its bytes bound and the plain
+              expression's time (forward; autograd of it, backward).
 3. fig5     — the paper's fig5 sweep at its registry defaults (1200 iters,
               S in {0,1,2,3} x 4 seeds = 16 runs) through `run_sweep` on
               the GPU in f64, held per run against the same sweep on the
@@ -132,7 +142,8 @@ Phases (any failure raises, exits non-zero and prints no result):
               once per attention layer (12).
 9a. serve-granite — the same for granite-4.0-h-micro at full size (batch
               2, prompt 8192, 32 new tokens): K3 once per attention layer
-              (4); its Mamba layers' prefill runs `ssd_chunked`.
+              (4), the conv + SiLU kernel once per Mamba layer (36); its
+              Mamba layers' prefill runs `ssd_chunked`.
 10. train-mamba2 — mamba2-1.3b at full width and depth (48 layers, 1.34 B
               parameters), batch 2 x 4096 tokens, remat "full": the loss
               and every parameter's gradient on the kernel path held
@@ -141,7 +152,8 @@ Phases (any failure raises, exits non-zero and prints no result):
               2 x the spread of plain bf16 vs plain f32) and widened to
               f32 (its CUDA-core body, TRAIN_TOL), with K4's launches
               counted (2 per layer: forward and recomputation; none on
-              the plain path); then 5 Adam steps through the training
+              the plain path), and the conv + SiLU kernel's (forward 2,
+              backward 1 per layer); then 5 Adam steps through the training
               entry point (`repro_torch.launch.train.main`) in bf16, with
               per-step losses, the warm step time, peak device memory and
               a profile of one more warm step, in which each pass of the
@@ -172,7 +184,8 @@ Phases (any failure raises, exits non-zero and prints no result):
               through `launch.train.run_consensus` (A 2, K 4, S 1,
               cyclic, P_rows 1, seq 2048): 5 incremental steps and 1
               parallel step with losses, residuals, step seconds, peak
-              memory and K3/K4 launches; then one more step, checked: (i)
+              memory and K3/K4 launches (mamba2: the conv + SiLU kernel's
+              with K4's); then one more step, checked: (i)
               the agent that does not commit keeps x and y bit for bit;
               (ii) z+ - z equals (1/A) sum mask delta recomputed in f64,
               within 2 ulps of z's dtype; (iii) two one-straggler alive
@@ -222,7 +235,8 @@ Phases (any failure raises, exits non-zero and prints no result):
               steps through the training entry point (launches, losses,
               warm step, peak memory), one more step of its runtime with
               the launch counts zeroed just before it (K4's tensor-core
-              forward 72 and backward 36, K3's forward 8 and backward 4),
+              forward 72 and backward 36, the conv + SiLU kernel's the
+              same, K3's forward 8 and backward 4),
               a profile of one warm step; then kernel vs plain loss and
               gradients at full width cut to 6 layers (5 Mamba, 1
               attention) at the same rows, in bf16 and f32, as train-rg.
@@ -303,6 +317,8 @@ SOURCES = {
     "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan_bwd": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "causal_conv_silu": "src/repro_torch/kernels/csrc/causal_conv.cu",
+    "causal_conv_silu_bwd": "src/repro_torch/kernels/csrc/causal_conv.cu",
 }
 # The TPU kernel each port kernel replaces; a backward kernel names the TPU
 # kernel whose gradient it gives (the TPU kernels have none: the reference
@@ -316,6 +332,9 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:98",
     "rglru_scan_bwd": "src/repro/kernels/rglru_scan.py:63",
     "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:79",
+    # No TPU kernel: the reference's conv + SiLU is jnp code XLA fuses.
+    "causal_conv_silu": "none (src/repro/models/mamba2.py:204, jnp)",
+    "causal_conv_silu_bwd": "none (src/repro/models/mamba2.py:204, jnp)",
 }
 # K3 shapes: (B, S, H, KV, hd, window, dtype). The first two are the
 # qwen3-0.6b prefill step of [serve-qwen3]; hd 256 with one kv head is
@@ -432,6 +451,17 @@ SSD_BWD_SMALL = [(2, S, 4, chunk, with_gh) for chunk in (64, 128, 256) for S in 
 SSD_BWD_FACTOR = 2.0
 SSD_BWD_F32_TOL = 1e-6
 SSD_BWD_F32_FACTOR = 4.0
+# The mixer's conv + SiLU at the cells' calls (B, S, C, W): the mamba2 cells'
+# 8 rows of 2,048 and the granite cell's 2 rows of 8,192, conv_dim 4,352
+# (x, B, C of mamba2-1.3b's widths) read as the column slice [4096, 8448)
+# of the (B, S, 8512) in-projection output. The forward is held bit for bit
+# to the plain expression; the backward's dx, dw, db to the f64 twin
+# ``causal_conv_silu_bwd_ref`` within CONV_BWD_FACTOR x the gap of autograd
+# of the expression on the same bf16 inputs (the card tests' rule; the gap
+# of float32 autograd from float32 leaves is printed beside it).
+CONV_SHAPES = {"cells_step": (8, 2048, 4352, 4), "granite_step": (2, 8192, 4352, 4)}
+CONV_IN_PROJ = (4096, 8512)  # where the slice starts, the in-projection's width
+CONV_BWD_FACTOR = 2.0
 # K4 against the exact answer (the sequential recurrence in f64 on the same
 # input values) and against its f32 plain versions on the card (the
 # sequential recurrence and the chunked form), normwise, for both input
@@ -690,7 +720,7 @@ def phase_build():
     """Build every CUDA source at once, one nvcc process each."""
     from repro_torch.kernels import _build
 
-    names = ("coded_combine", "flash_attention", "rglru_scan", "ssd_scan")
+    names = ("coded_combine", "flash_attention", "rglru_scan", "ssd_scan", "causal_conv")
 
     def timed(name):
         t0 = time.perf_counter()
@@ -712,12 +742,16 @@ def phase_build():
                 "ssd_bwd_dbc_kernel"))
     sass_check(built[names.index("flash_attention")][0],
                ("flash_attention_tc_kernel", "flash_attention_bwd_tc_kernel"))
+    from repro_torch.kernels.causal_conv import KERNEL_NAMES as CONV_KERNELS
+
+    sass_check(built[names.index("causal_conv")][0], (),
+               present=[n for names_ in CONV_KERNELS.values() for n in names_])
 
 
-def sass_check(lib, tensor_core_kernels) -> dict:
+def sass_check(lib, tensor_core_kernels, present=()) -> dict:
     """Count the tensor-core instructions (HGMMA, wgmma's SASS) of every
     kernel in ``lib`` from ``cuobjdump -sass``; raise unless each of
-    ``tensor_core_kernels`` issues some."""
+    ``tensor_core_kernels`` holds some and each of ``present`` is there."""
     from repro_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -735,6 +769,9 @@ def sass_check(lib, tensor_core_kernels) -> dict:
     for name in tensor_core_kernels:
         if not any(name in fn and n > 0 for fn, n in counts.items()):
             raise AssertionError(f"{name}: no HGMMA in its SASS")
+    for name in present:
+        if not any(name in fn for fn in counts):
+            raise AssertionError(f"{name}: not in the SASS of {lib.name}")
     return counts
 
 
@@ -2270,13 +2307,128 @@ def ssd_bwd_rows():
     return rows
 
 
+def conv_work(B, S, C, W, dtype, backward=False):
+    """(bytes, flops, peak flops) of one conv + SiLU call. Bytes: the forward
+    reads x and writes its output once, the backward reads x and the
+    output's gradient and writes dx once; w and b (and dw, db) besides.
+    Operations an element: 2 W for the taps and the bias and 3 for the SiLU
+    forward; backward that again, 5 for dpre and 4 W + 1 for dx, dw and db;
+    at the CUDA cores' float32 rate (the kernels compute in float32)."""
+    es = torch.finfo(dtype).bits // 8
+    n = B * S * C
+    if backward:
+        return 3 * n * es + 2 * (W + 1) * C * es, (6 * W + 9) * n, PEAK_FLOPS[torch.float32]
+    return 2 * n * es + (W + 1) * C * es, (2 * W + 3) * n, PEAK_FLOPS[torch.float32]
+
+
+def phase_conv_kernels():
+    """The Mamba-2 mixer's conv + SiLU kernels at the cells' calls
+    (CONV_SHAPES, bf16, x the column slice of a (B, S, 8512) in-projection
+    output, read in place), a row a direction: the forward against the
+    plain expression F.silu(layers.causal_conv(...)) bit for bit; the
+    backward's dx, dw, db against the f64 twin ``causal_conv_silu_bwd_ref``
+    within CONV_BWD_FACTOR x the gap of autograd of the expression on the
+    same inputs (float32 autograd from float32 leaves beside it), the same
+    bits on a second run, and ``max_abs_err`` its largest gap to that
+    autograd; each beside its bytes bound and the
+    plain expression's time (autograd of it for the backward). No single
+    PyTorch call computes the function, so no library time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.causal_conv import (
+        KERNEL_NAMES,
+        causal_conv_silu_bwd_kernel,
+        causal_conv_silu_kernel,
+    )
+    from repro_torch.models.layers import causal_conv
+
+    di, width = CONV_IN_PROJ
+    dt = torch.bfloat16
+
+    def rel(got, want):
+        return max_err(got, want) / max(want.abs().max().item(), 1e-30)
+
+    def grads(x, w, b, gy, dtype):
+        leaves = [t.to(dtype).detach().requires_grad_(True) for t in (x, w, b)]
+        out = F.silu(causal_conv(*leaves))
+        return torch.autograd.grad(out, leaves, gy.to(dtype))
+
+    rows = []
+    for label, (B, S, C, W) in CONV_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(B * S + C + W)
+        x = torch.randn(B, S, width, generator=g, device="cuda").to(dt)[:, :, di:di + C]
+        w = (0.2 * torch.randn(W, C, generator=g, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(C, generator=g, device="cuda")).to(dt)
+        gy = torch.randn(B, S, C, generator=g, device="cuda").to(dt)
+
+        def fwd():
+            return causal_conv_silu_kernel(x, w, b)
+
+        def plain():
+            return F.silu(causal_conv(x, w, b))
+
+        with torch.no_grad():
+            got, want = fwd(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"causal_conv_silu {label}: {int((got != want).sum())} "
+                                     "elements differ from the plain expression")
+            del got, want
+            times = pass_times(f"causal_conv_silu {label}", fwd, 10, KERNEL_NAMES["forward"])
+            row = dict(name="causal_conv_silu", shape=label, B=B, S=S, C=C, W=W, dtype="bfloat16",
+                       x_strides=list(x.stride()), bit_for_bit=True, max_abs_err=0.0,
+                       ms=cuda_ms(fwd, 10), device_ms=times["device_ms"],
+                       plain_ms=cuda_ms(plain, 5), library_ms=None)
+        roofline(row, *conv_work(B, S, C, W, dt))
+        log("[kernels] " + json.dumps(row))
+        rows.append(row)
+
+        def bwd():
+            return causal_conv_silu_bwd_kernel(x, w, b, gy)
+
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(got, again))
+        del again
+        exact = ref.causal_conv_silu_bwd_ref(*(t.double() for t in (x, w, b, gy)))
+        plain16, f32 = grads(x, w, b, gy, dt), grads(x, w, b, gy, torch.float32)
+        gaps = {}
+        for n, k, p, q, e in zip(("dx", "dw", "db"), got, plain16, f32, exact):
+            gaps[n] = dict(kernel=rel(k, e), autograd=rel(p, e),
+                           float32_leaves_autograd=rel(q.to(dt), e))
+            if not (bool(torch.isfinite(k).all())
+                    and gaps[n]["kernel"] <= CONV_BWD_FACTOR * gaps[n]["autograd"]):
+                raise AssertionError(f"causal_conv_silu_bwd {label} {n}: gaps {gaps[n]} "
+                                     f"(tolerance {CONV_BWD_FACTOR} x autograd's)")
+        if not same:
+            raise AssertionError(f"causal_conv_silu_bwd {label}: two runs differ")
+        max_abs = max(max_err(k, p) for k, p in zip(got, plain16))
+        del exact, f32, plain16, got
+        torch.cuda.empty_cache()
+        times = pass_times(f"causal_conv_silu_bwd {label}", bwd, 10, KERNEL_NAMES["backward"])
+        row = dict(name="causal_conv_silu_bwd", shape=label, B=B, S=S, C=C, W=W,
+                   dtype="bfloat16", normwise_err=gaps,
+                   tol=f"{CONV_BWD_FACTOR} x autograd of the plain expression",
+                   same_bits=same, max_abs_err=max_abs, ms=cuda_ms(bwd, 10),
+                   device_ms=times["device_ms"], passes=times["passes"],
+                   plain_ms=cuda_ms(lambda: grads(x, w, b, gy, dt), 3), library_ms=None)
+        roofline(row, *conv_work(B, S, C, W, dt, backward=True))
+        log("[kernels] " + json.dumps(row))
+        rows.append(row)
+        del x, w, b, gy
+        torch.cuda.empty_cache()
+    return rows
+
+
 def reset_launches():
+    from repro_torch.kernels.causal_conv import LAUNCHES as conv
     from repro_torch.kernels.coded_combine import LAUNCHES as k12
     from repro_torch.kernels.flash_attention import LAUNCHES as k3
     from repro_torch.kernels.rglru_scan import LAUNCHES as k5
     from repro_torch.kernels.ssd_scan import LAUNCHES as k4
 
-    counters = (k12, k3, k4, k5)
+    counters = (k12, k3, k4, k5, conv)
     for c in counters:
         for k in c:
             c[k] = 0
@@ -2583,9 +2735,11 @@ def phase_train_mamba2():
     # K4's launches in one loss + backward on the kernel path: the body that
     # `ssd_body` picks, the tensor-core one in bf16 and the CUDA-core one in
     # f32, in the forward and its recomputation; in bf16 also the backward
-    # kernel, once a layer (in f32 the backward is autograd of ssd_chunked).
-    per_pass = {"bfloat16": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L},
-                "float32": {"ssd_scan": 2 * L}}
+    # kernel, once a layer (in f32 the backward is autograd of ssd_chunked);
+    # the conv + SiLU kernel forward twice and backward once a layer in both.
+    conv = {"causal_conv_silu": 2 * L, "causal_conv_silu_bwd": L}
+    per_pass = {"bfloat16": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L, **conv},
+                "float32": {"ssd_scan": 2 * L, **conv}}
     result, out = {}, {}
     for dtype in ("bfloat16", "float32"):
         if dtype == "float32":
@@ -2641,8 +2795,7 @@ def phase_train_mamba2():
     peak = torch.cuda.max_memory_allocated()
     losses = run["losses"]
     want = {k: 0 for k in launches}
-    want["ssd_scan_tc"] = steps * 2 * L
-    want["ssd_scan_bwd_tc"] = steps * L
+    want.update({k: steps * n for k, n in per_pass["bfloat16"].items()})
     if launches != want:
         raise AssertionError(f"train-mamba2: launches {launches}, want {want} ({steps} steps)")
     if len(losses) != steps or not all(np.isfinite(losses)):
@@ -2652,7 +2805,9 @@ def phase_train_mamba2():
         f"{json.dumps(run['step_s'])}, warm step {warm:.4f} s, peak device memory "
         f"{peak / 2**30:.2f} GiB, K4 launches {launches['ssd_scan_tc']} "
         f"({launches['ssd_scan_tc'] // steps} per step, the tensor-core body), K4 backward "
-        f"launches {launches['ssd_scan_bwd_tc']} ({launches['ssd_scan_bwd_tc'] // steps} per step)")
+        f"launches {launches['ssd_scan_bwd_tc']} ({launches['ssd_scan_bwd_tc'] // steps} per step), "
+        f"conv + SiLU launches {launches['causal_conv_silu']} forward, "
+        f"{launches['causal_conv_silu_bwd']} backward")
     rt = PlainRuntime(run["model"], lr=3e-4)
     state = run["state"]
     batch = {k: torch.from_numpy(v).cuda() for k, v in make_lm_batch(stream, B, S).items()}
@@ -2673,7 +2828,9 @@ def phase_train_mamba2():
         f"{prof['wall_ms']:.1f} ms of wall); warm step {warm:.4f} s")
     result.update(losses=losses, warm_step_s=warm, peak_bytes=peak, profile=prof,
                   k4_device_ms=k4_ms, launches_per_step=launches["ssd_scan_tc"] // steps,
-                  bwd_launches_per_step=launches["ssd_scan_bwd_tc"] // steps)
+                  bwd_launches_per_step=launches["ssd_scan_bwd_tc"] // steps,
+                  conv_launches_per_step=launches["causal_conv_silu"] // steps,
+                  conv_bwd_launches_per_step=launches["causal_conv_silu_bwd"] // steps)
     del run, rt, state, batch
     torch.cuda.empty_cache()
     return result
@@ -2936,7 +3093,8 @@ def phase_train_granite(steps=3, n_layers=6):
 
     def per_pass(cfg):
         Lm, La = cfg.layer_types.count("mamba"), cfg.layer_types.count("attention")
-        k3 = {"flash_attention": 2 * La, "flash_attention_bwd": La}
+        k3 = {"flash_attention": 2 * La, "flash_attention_bwd": La,
+              "causal_conv_silu": 2 * Lm, "causal_conv_silu_bwd": Lm}
         return {"bfloat16": {"ssd_scan_tc": 2 * Lm, "ssd_scan_bwd_tc": Lm, **k3},
                 "float32": {"ssd_scan": 2 * Lm, **k3}}
 
@@ -3580,8 +3738,9 @@ def phase_train_mamba2_witness(seeds=(0, 1), B=2, S=4096):
         f"witness reckoned at {reckoned / 2**30:.1f} GiB of {total / 2**30:.1f} GiB"
         + ("" if L == full.n_layers else f"; depth cut {full.n_layers} -> {L} layers for "
            "every path"))
-    want_launches = {"plain": {}, "cuda_cores": {"ssd_scan": 2 * L},
-                     "tensor_cores": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L}}
+    conv = {"causal_conv_silu": 2 * L, "causal_conv_silu_bwd": L}
+    want_launches = {"plain": {}, "cuda_cores": {"ssd_scan": 2 * L, **conv},
+                     "tensor_cores": {"ssd_scan_tc": 2 * L, "ssd_scan_bwd_tc": L, **conv}}
     readings = []
     for seed in seeds:
         model = get_model(cfg, device="cuda",
@@ -3821,6 +3980,7 @@ def main() -> int:
     rows += phase_backward_kernels()
     phase_k3_bwd_variants()
     rows += phase_ssd_kernels()
+    rows += phase_conv_kernels()
     launches = phase_fig5()
     phase_fig3_stragglers()
     phase_baselines()
@@ -3835,17 +3995,19 @@ def main() -> int:
     # recurrentgemma-9b: 12 attention layers (K3) and 26 recurrent (K5).
     rg = phase_serve("serve-rg", "recurrentgemma-9b", 2, 2048, 16,
                      {"flash_attention": 12, "rglru_scan": 26}, K5_KERNELS + K3_KERNELS)
-    # granite-4.0-h-micro: K3 once a layer of its 4 attention layers; its
-    # Mamba layers' prefill runs `ssd_chunked`, as mamba2's does.
-    phase_serve("serve-granite", "granite-4.0-h-micro", 2, 8192, 32, {"flash_attention": 4},
-                K3_KERNELS)
+    # granite-4.0-h-micro: K3 once a layer of its 4 attention layers, the
+    # conv + SiLU kernel once a layer of its 36 Mamba layers; their prefill
+    # runs `ssd_chunked`, as mamba2's does.
+    phase_serve("serve-granite", "granite-4.0-h-micro", 2, 8192, 32,
+                {"flash_attention": 4, "causal_conv_silu": 36}, K3_KERNELS)
     mamba = phase_train_mamba2()
     phase_train_mamba2_witness()
     qwen_train = phase_train_qwen3()
     rg_train = phase_train_rg()
     phase_train_granite()
-    phase_consensus("consensus-mamba2", "mamba2-1.3b", {"ssd_scan_tc": 48},
-                    {"ssd_scan_bwd_tc": 48})
+    phase_consensus("consensus-mamba2", "mamba2-1.3b",
+                    {"ssd_scan_tc": 48, "causal_conv_silu": 48},
+                    {"ssd_scan_bwd_tc": 48, "causal_conv_silu_bwd": 48})
     phase_consensus("consensus-qwen3", "qwen3-0.6b", {"flash_attention": 28},
                     {"flash_attention_bwd": 28})
     phase_moe_vlm()
@@ -3859,6 +4021,8 @@ def main() -> int:
     launches["flash_attention_bwd"] = qwen_train["launches_per_step"]["flash_attention_bwd"]
     launches["rglru_scan_bwd"] = rg_train["launches_per_step"]["rglru_scan_bwd"]
     launches["ssd_scan_bwd"] = mamba["bwd_launches_per_step"]
+    launches["causal_conv_silu"] = mamba["conv_launches_per_step"]
+    launches["causal_conv_silu_bwd"] = mamba["conv_bwd_launches_per_step"]
     # Each kernel's row in the summary: its main path's shape and dtype.
     main_shape = {
         "coded_admm_update": ("fig5_step", "float64"),
@@ -3869,6 +4033,8 @@ def main() -> int:
         "flash_attention_bwd": ("qwen3_train", "bfloat16"),
         "rglru_scan_bwd": ("rg_train", "float32"),
         "ssd_scan_bwd": ("cells_step", "bfloat16"),
+        "causal_conv_silu": ("cells_step", "bfloat16"),
+        "causal_conv_silu_bwd": ("cells_step", "bfloat16"),
     }
     main_row = {
         r["name"]: r for r in rows if (r["shape"], r["dtype"]) == main_shape[r["name"]]

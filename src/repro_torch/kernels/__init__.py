@@ -11,15 +11,19 @@ PyTorch versions.
       recurrent layer, with a backward kernel (the reverse scan).
       ``csrc/rglru_scan.cu``.
   ssd_scan (K4) — the chunked Mamba-2 SSD scan of the mamba2 training
-      forward, with a plain-PyTorch gradient. ``csrc/ssd_scan.cu``.
+      forward, with a backward kernel. ``csrc/ssd_scan.cu``.
+  causal_conv_silu — the Mamba-2 mixer's causal depthwise conv + SiLU
+      before the scan, forward and backward (no TPU kernel behind it: the
+      reference leaves it to XLA). ``csrc/causal_conv.cu``.
 
 All are CUDA C++ for sm_90a. `ops` holds the public entry points (CUDA
 tensors -> kernel, CPU tensors -> plain version); `ref` the plain PyTorch
-versions; `coded_combine`, `flash_attention`, `rglru_scan` and `ssd_scan` the
-ctypes bindings with their launch counters; `_build` the nvcc build.
+versions; `coded_combine`, `flash_attention`, `rglru_scan`, `ssd_scan` and
+`causal_conv` the ctypes bindings with their launch counters; `_build` the nvcc build.
 """
 
 from .ops import (
+    causal_conv_silu,
     coded_admm_update,
     coded_combine,
     flash_attention,
@@ -28,6 +32,7 @@ from .ops import (
 )
 
 __all__ = [
+    "causal_conv_silu",
     "coded_combine",
     "coded_admm_update",
     "flash_attention",

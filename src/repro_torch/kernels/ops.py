@@ -4,11 +4,12 @@ Counterpart of `repro.kernels.ops`. A CUDA tensor goes to the
 hand-written kernel or the call raises; a CPU tensor goes to the plain
 PyTorch version (`repro_torch.kernels.ref`); any other device raises.
 There is no fallback from one to the other. ``flash_attention``,
-``rglru_scan`` and ``ssd_scan`` are differentiable on the card through
-autograd Functions (`_FlashAttention`, `_RGLRUScan` and `_SSDScan`, whose
-backward is a hand-written kernel; `_SSDScan`'s only where its forward ran
-the tensor-core body, plain PyTorch elsewhere); on the CPU the plain
-versions run under ordinary autograd. The coded-combine
+``rglru_scan``, ``ssd_scan`` and ``causal_conv_silu`` are differentiable
+on the card through autograd Functions (`_FlashAttention`, `_RGLRUScan`,
+`_SSDScan` and `_CausalConvSiLU`, whose backward is a hand-written kernel;
+`_SSDScan`'s only where its forward ran the tensor-core body, plain
+PyTorch elsewhere); on the CPU the plain versions run under ordinary
+autograd. The coded-combine
 kernels have no backward (nothing differentiates them).
 
 Unlike the reference, nothing is padded or re-tiled: the TPU kernels need
@@ -25,9 +26,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from .causal_conv import causal_conv_silu_bwd_kernel, causal_conv_silu_kernel
 from .coded_combine import coded_admm_update_kernel, coded_combine_kernel
 from .flash_attention import flash_attention_bwd_kernel, flash_attention_kernel
 from .ref import (
+    causal_conv_silu_ref,
     coded_admm_update_ref,
     coded_combine_ref,
     compute_dtype,
@@ -39,6 +42,7 @@ from .rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
 from .ssd_scan import ssd_body, ssd_scan_bwd_tc_kernel, ssd_scan_kernel, ssd_scan_tc_kernel
 
 __all__ = [
+    "causal_conv_silu",
     "coded_combine",
     "coded_admm_update",
     "flash_attention",
@@ -294,3 +298,36 @@ def ssd_scan(
     the sequential plain version. Differentiable on both (`_SSDScan`)."""
     _on_cuda(x, "ssd-scan")
     return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+
+
+class _CausalConvSiLU(torch.autograd.Function):
+    """The mixer's conv + SiLU with a gradient, on CUDA tensors: the
+    forward kernel, and the backward kernel from the saved x, w and b
+    (pre-activation and SiLU recomputed in registers; nothing of the
+    forward's float32 work is kept)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return causal_conv_silu_kernel(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        grads = causal_conv_silu_bwd_kernel(x, w, b, g)
+        return tuple(t if n else None for t, n in zip(grads, ctx.needs_input_grad))
+
+
+def causal_conv_silu(
+    seq: torch.Tensor,  # (B, S, C), channel stride 1 on CUDA
+    w: torch.Tensor,  # (W, C), 1 <= W <= 4 on CUDA
+    b: torch.Tensor,  # (C,)
+) -> torch.Tensor:
+    """SiLU of the Mamba-2 mixer's causal depthwise conv, in ``seq``'s
+    dtype: ``F.silu(models.layers.causal_conv(seq, w, b))``. On CUDA the
+    kernel (bit for bit that expression; ``seq`` read through its strides,
+    w and b of its dtype), on the CPU the plain version; differentiable on
+    both."""
+    if not _on_cuda(seq, "causal-conv"):
+        return causal_conv_silu_ref(seq, w, b)
+    return _CausalConvSiLU.apply(seq, w, b)

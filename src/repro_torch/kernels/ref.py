@@ -16,6 +16,11 @@ Counterparts of `repro.kernels.ref`:
   ``promote(dtype, float32)`` (float32 for the model's float32 gates);
   ``rglru_scan_bwd_ref`` its gradient, the reverse recurrence of the K5
   backward kernel.
+- ``causal_conv_silu_ref``: SiLU of the Mamba-2 mixer's causal depthwise
+  conv, the expression of `models.layers.causal_conv` + ``F.silu``
+  (float32, float64 for float64, rounded to the input's dtype before the
+  SiLU); ``causal_conv_silu_bwd_ref`` its gradient in float64 at the
+  input dtype's rounding points, the closed form of the CUDA backward.
 - ``ssd_scan_ref``: the sequential Mamba-2 SSD recurrence, in
   ``promote(dtype, float32)`` (the reference computes in float32 and
   raises on float64 ``dt``; float64 here serves the gradient checks);
@@ -29,6 +34,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "compute_dtype",
@@ -38,6 +44,8 @@ __all__ = [
     "flash_attention_bwd_ref",
     "rglru_scan_ref",
     "rglru_scan_bwd_ref",
+    "causal_conv_silu_ref",
+    "causal_conv_silu_bwd_ref",
     "ssd_scan_ref",
     "ssd_scan_bwd_ref",
 ]
@@ -226,6 +234,51 @@ def rglru_scan_bwd_ref(
         db[:, t] = g
         da[:, t] = g * (h[:, t - 1].to(ct) if t > 0 else prev0)
     return da, db, a[:, 0].to(ct) * g
+
+
+def causal_conv_silu_ref(
+    seq: torch.Tensor,  # (B, S, C)
+    w: torch.Tensor,  # (W, C)
+    b: torch.Tensor,  # (C,)
+) -> torch.Tensor:
+    """SiLU(out), out_t = sum_j w_j x_{t-W+1+j} + b (x_t = 0 for t < 0):
+    ``F.silu(models.layers.causal_conv(seq, w, b))``, each product and sum
+    in ``promote(dtype, float32)`` in its tap order, rounded to ``seq``'s
+    dtype before the SiLU, which the CUDA kernel matches bit for bit.
+    Differentiable."""
+    from ..models.layers import causal_conv  # imported here: `models` imports `kernels`
+
+    return F.silu(causal_conv(seq, w, b))
+
+
+def causal_conv_silu_bwd_ref(
+    seq: torch.Tensor,  # (B, S, C)
+    w: torch.Tensor,  # (W, C)
+    b: torch.Tensor,  # (C,)
+    g: torch.Tensor,  # (B, S, C) gradient of the output
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``causal_conv_silu_ref`` in float64, with the
+    rounding points of ``seq``'s dtype (none for float64), as the CUDA
+    backward computes it:
+
+      pre_t  = T(sum_j w_j x_{t-W+1+j} + b)               (T: seq's dtype)
+      dpre_t = T(g_t s (1 + pre_t (1 - s))), s = sigmoid(pre_t)
+      dx_t   = sum_j w_j dpre_{t+W-1-j}  (dpre_t = 0 for t >= S)
+      dw_j   = sum_{b,t} dpre_t x_{t-W+1+j},   db = sum_{b,t} dpre_t.
+
+    Returns (dx, dw, db) in float64, unrounded."""
+    f64 = torch.float64
+    S, W = seq.shape[1], w.shape[0]
+    pad = F.pad(seq.to(f64), (0, 0, W - 1, 0))
+    wf = w.to(f64)
+    pre = sum(pad[:, j:j + S] * wf[j] for j in range(W)) + b.to(f64)
+    pre = pre.to(seq.dtype).to(f64)
+    s = torch.sigmoid(pre)
+    dpre = (g.to(f64) * s * (1 + pre * (1 - s))).to(seq.dtype).to(f64)
+    after = F.pad(dpre, (0, 0, 0, W - 1))
+    dx = sum(wf[j] * after[:, W - 1 - j:W - 1 - j + S] for j in range(W))
+    dw = torch.stack([(dpre * pad[:, j:j + S]).sum((0, 1)) for j in range(W)])
+    return dx, dw, dpre.sum((0, 1))
 
 
 def ssd_scan_ref(

@@ -20,7 +20,9 @@ reference's stacked arrays. Its entry points:
 The training forward's SSD runs through K4 (``ssm_impl="kernel"``:
 `repro_torch.kernels.ops.ssd_scan`, the CUDA kernel on the card, with a
 gradient) or the plain chunked form ``ssd_chunked`` (``"plain"``), layer
-by layer under ``maybe_remat``. Prefill always uses ``ssd_chunked`` (it
+by layer under ``maybe_remat``; with ``"kernel"`` the causal conv + SiLU
+before it runs through `repro_torch.kernels.ops.causal_conv_silu` too,
+in training and prefill. Prefill always uses ``ssd_chunked`` (it
 needs the final state, as in the reference) and decode the one-step
 recurrence ``ssd_decode``.
 
@@ -228,11 +230,17 @@ def _block_seq(cfg: ModelConfig, lp, u: torch.Tensor) -> torch.Tensor:
 
 def _mixer_in(cfg: ModelConfig, lp, h: torch.Tensor):
     """The mixer up to the scan, on a full sequence: (z, the pre-conv
-    (x, B, C) whose tail a cache keeps, x (B, S, H, P), dt, A, B, C)."""
+    (x, B, C) whose tail a cache keeps, x (B, S, H, P), dt, A, B, C). The
+    conv + SiLU runs through ``ops.causal_conv_silu`` for
+    ``ssm_impl="kernel"`` (on the card one kernel each way, bit for bit
+    the plain expression's forward), as that expression for ``"plain"``."""
     di, H, P, N, conv_dim = _dims(cfg)
     B_, S, _ = h.shape
     z, xBC_raw, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
-    xBC = F.silu(causal_conv(xBC_raw, lp.conv_w, lp.conv_b))
+    if cfg.ssm_impl == "kernel":
+        xBC = ops.causal_conv_silu(xBC_raw, lp.conv_w, lp.conv_b)
+    else:
+        xBC = F.silu(causal_conv(xBC_raw, lp.conv_w, lp.conv_b))
     x, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
     dt, A = _dt_A(lp, dt_raw)
     return z, xBC_raw, x.reshape(B_, S, H, P), dt, A, Bm, Cm

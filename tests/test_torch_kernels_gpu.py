@@ -671,3 +671,140 @@ def test_autograd_through_k3_and_k5_on_the_card(cuda):
     want = torch.autograd.grad((hr * dh).sum() + hlr.sum(), (a, b, h0))
     for got_, want_ in zip(got, want):
         assert _normwise(got_, want_) <= 1e-5
+
+
+# The mixer's causal conv + SiLU (csrc/causal_conv.cu). The forward is held
+# bit for bit to the plain expression F.silu(layers.causal_conv(...)) in every
+# dtype. The gradients against float64 (the twin causal_conv_silu_bwd_ref on
+# the same values in float64, which the CPU tests hold to float64 autograd of
+# the expression): in bfloat16 and float32 within CONV_BWD_FACTOR x the gap of
+# autograd of the expression on the same inputs (the path the kernel
+# replaces: float32 arithmetic, the input dtype's rounding points), K4's
+# backward rule. In bfloat16 that autograd rounds dpre to bfloat16, as the
+# kernel does, and the kernel's gaps read equal to its on the card; against
+# float32 autograd from float32 leaves, which rounds only its result, the
+# kernel's dx read 1.86 x its gap at the cells' call and 2.08 x at W = 1,
+# where dx is one tap times a rounded dpre. In float64 within TOL["float64"].
+CONV_BWD_FACTOR = 2.0
+# (B, S, C, W, dtype, in-projection width or None): with a width, x is the
+# column slice [di, di + C) of a (B, S, width) in-projection output, read
+# through its row stride as the mixer reads it (mamba2-1.3b and granite:
+# width 8512 = 4096 + 4352 + 64; the smoke config: 552 = 256 + 288 + 8).
+CONV_CASES = [
+    (8, 2048, 4352, 4, "bfloat16", 8512),  # the mamba2 cells' call
+    (2, 8192, 4352, 4, "bfloat16", 8512),  # the granite cell's call
+    (2, 600, 4352, 4, "bfloat16", None),  # ragged S
+    (3, 1, 288, 4, "bfloat16", None),  # S < W
+    (3, 3, 288, 4, "bfloat16", 552),  # S < W, strided
+    (2, 600, 288, 1, "bfloat16", None),
+    (2, 600, 290, 3, "bfloat16", None),  # C off every vector width: one channel a thread
+    (2, 600, 288, 2, "float32", 552),
+    (2, 600, 288, 3, "float32", None),
+    (3, 1, 288, 2, "float32", None),  # S < W
+    (1, 5, 7, 3, "float32", None),  # C off every vector width
+    (2, 600, 288, 4, "float64", 552),
+    (2, 600, 288, 1, "float64", None),
+    (3, 3, 288, 4, "float64", None),  # S < W
+]
+CONV_DI = {8512: 4096, 552: 256}  # where the slice starts: the width of z
+
+
+def _conv_inputs(cuda, B, S, C, W, dtype, width):
+    """(x, w, b, g) on the card: x a slice of a (B, S, width) matrix when
+    ``width`` is given, conv_w-sized weights (std 0.2), bias and output
+    gradient."""
+    dt = TORCH[dtype]
+    g = torch.Generator(device="cpu").manual_seed(B * S + C + W)
+    if width is None:
+        x = torch.randn(B, S, C, generator=g).to(dt).to(cuda)
+    else:
+        di = CONV_DI[width]
+        x = torch.randn(B, S, width, generator=g).to(dt).to(cuda)[:, :, di:di + C]
+        assert not x.is_contiguous() and x.stride(1) == width
+    w = (0.2 * torch.randn(W, C, generator=g)).to(dt).to(cuda)
+    b = (0.1 * torch.randn(C, generator=g)).to(dt).to(cuda)
+    gy = torch.randn(B, S, C, generator=g).to(dt).to(cuda)
+    return x, w, b, gy
+
+
+def _conv_plain_grads(x, w, b, gy, dtype):
+    from repro_torch.models.layers import causal_conv
+
+    leaves = [t.to(dtype).detach().requires_grad_(True) for t in (x, w, b)]
+    out = torch.nn.functional.silu(causal_conv(*leaves))
+    return [gr.to(t.dtype) for gr, t in zip(torch.autograd.grad(out, leaves, gy.to(dtype)),
+                                            (x, w, b))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,C,W,dtype,width", CONV_CASES)
+def test_causal_conv_silu_kernel_is_the_plain_expression_bit_for_bit(cuda, B, S, C, W, dtype,
+                                                                     width):
+    """The forward kernel's output equals F.silu(layers.causal_conv(...))
+    to the bit, contiguous in the input's dtype, one launch counted."""
+    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
+    from repro_torch.kernels.causal_conv import causal_conv_silu_kernel
+    from repro_torch.models.layers import causal_conv
+
+    x, w, b, _ = _conv_inputs(cuda, B, S, C, W, dtype, width)
+    before = dict(CONV)
+    got = causal_conv_silu_kernel(x, w, b)
+    torch.cuda.synchronize()
+    assert CONV == dict(before, causal_conv_silu=before["causal_conv_silu"] + 1)
+    assert got.dtype == x.dtype and got.is_contiguous()
+    assert torch.equal(got, torch.nn.functional.silu(causal_conv(x, w, b)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,C,W,dtype,width", CONV_CASES)
+def test_causal_conv_silu_backward_kernel_matches_float64(cuda, B, S, C, W, dtype, width):
+    """dx, dw and db against float64 (module note), in the input's dtype,
+    the same bits on a second run, one launch counted a call."""
+    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
+    from repro_torch.kernels.causal_conv import causal_conv_silu_bwd_kernel
+
+    x, w, b, gy = _conv_inputs(cuda, B, S, C, W, dtype, width)
+    before = dict(CONV)
+    got = causal_conv_silu_bwd_kernel(x, w, b, gy)
+    again = causal_conv_silu_bwd_kernel(x, w, b, gy)
+    torch.cuda.synchronize()
+    assert CONV == dict(before, causal_conv_silu_bwd=before["causal_conv_silu_bwd"] + 2)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    assert [t.dtype for t in got] == [x.dtype] * 3
+    exact = t_ref.causal_conv_silu_bwd_ref(*(t.double() for t in (x, w, b, gy)))
+    if dtype == "float64":
+        for name, k, e in zip(("dx", "dw", "db"), got, exact):
+            assert _rel(k, e) <= TOL["float64"]["rtol"], (name, _rel(k, e))
+        return
+    plain = _conv_plain_grads(x, w, b, gy, x.dtype)
+    for name, k, p, e in zip(("dx", "dw", "db"), got, plain, exact):
+        assert torch.isfinite(k).all(), name
+        assert _rel(k, e) <= CONV_BWD_FACTOR * _rel(p, e), (name, _rel(k, e), _rel(p, e))
+
+
+@pytest.mark.gpu
+def test_causal_conv_silu_through_ops_on_the_card(cuda):
+    """`ops.causal_conv_silu` on a strided CUDA slice that needs a gradient:
+    one forward and one backward launch, the forward kernel's output and the
+    backward kernel's gradients; widths beyond 4 and mixed dtypes raise."""
+    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
+    from repro_torch.kernels.causal_conv import (
+        causal_conv_silu_bwd_kernel,
+        causal_conv_silu_kernel,
+    )
+
+    x, w, b, gy = _conv_inputs(cuda, 2, 300, 288, 4, "bfloat16", 552)
+    leaves = [t.clone().requires_grad_(True) for t in (w, b)]
+    xs = x.detach().requires_grad_(True)
+    before = dict(CONV)
+    out = t_ops.causal_conv_silu(xs, *leaves)
+    got = torch.autograd.grad(out, [xs, *leaves], gy)
+    torch.cuda.synchronize()
+    assert CONV == {k: v + 1 for k, v in before.items()}
+    assert torch.equal(out, causal_conv_silu_kernel(x, w, b))
+    assert all(torch.equal(u, v)
+               for u, v in zip(got, causal_conv_silu_bwd_kernel(x, w, b, gy)))
+    with pytest.raises(ValueError, match="W <= 4"):
+        t_ops.causal_conv_silu(x, torch.zeros(5, 288, dtype=x.dtype, device=cuda), b)
+    with pytest.raises(ValueError, match="bfloat16"):
+        t_ops.causal_conv_silu(x, w.float(), b)
