@@ -276,14 +276,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from portbench.work import flash_attention as attention_work
+from portbench.work import ssd_scan as ssd_work
+from portbench.work.roofline import HBM_BYTES_PER_S, bound_s
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 # Peak rate outside the tensor cores, by accumulation type (NVIDIA H100
-# SXM data sheet): 67 TFLOP/s float32, 34 TFLOP/s float64.
+# SXM data sheet): 67 TFLOP/s float32, 34 TFLOP/s float64. The memory rate
+# and the peaks of products are the benchmark's (`portbench.work.roofline`).
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-# Peak rate for a product of inputs of the type: bf16 on the tensor cores
-# (989 TFLOP/s dense), float32 outside them (67 TFLOP/s).
-PEAK_PRODUCT_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel-vs-plain tolerance by OUTPUT dtype, normwise
 # (max |kernel - plain| <= tol * max(max |plain|, 1)), at the reference's
 # kernel-test levels (tests/test_kernels.py): f64 1e-12, f32 1e-5, bf16
@@ -630,14 +631,13 @@ def kernel_inputs(R, J, n, dtype, seed):
 
 
 def roofline(row: dict, nbytes: float, flops: float, peak_flops: float) -> dict:
-    """Add to a kernel's row its bound (the larger of ``nbytes`` over the
-    memory rate and ``flops`` over ``peak_flops``), what bounds it, its
-    share of the bound (bound_ms / device_ms) and the rate it achieved:
-    TFLOP/s where operations bound it, TB/s where bytes do."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    by_bytes = t_bytes >= t_ops
-    row["bound_ms"] = t_bytes if by_bytes else t_ops
+    """Add to a kernel's row its bound (the benchmark's ``bound_s``: the
+    larger of ``nbytes`` over the memory rate and ``flops`` over
+    ``peak_flops``), what bounds it, its share of the bound (bound_ms /
+    device_ms) and the rate it achieved: TFLOP/s where operations bound
+    it, TB/s where bytes do."""
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / peak_flops
+    row["bound_ms"] = bound_s(nbytes, flops, peak_flops) * 1e3
     row["bound_by"] = "bytes" if by_bytes else "operations"
     row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
     seconds = row["device_ms"] * 1e-3
@@ -861,15 +861,13 @@ def compare_traces(label, got, want, rtol, atol=1e-12):
 
 def phase_fig5():
     from repro_torch.experiments import get_sweep, run_sweep
-    from repro_torch.kernels.coded_combine import LAUNCHES
 
     spec = get_sweep("fig5")
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    counters = reset_launches()
     t0 = time.perf_counter()
     gpu = run_sweep(spec, device="cuda", dtype=torch.float64)
     wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    launches = read_launches(counters)
     iters = gpu.cases[0].iters
     log(
         f"[fig5] cuda f64: {len(gpu.cases)} runs x {iters} iters in "
@@ -904,11 +902,9 @@ def phase_fig5():
 
 def phase_fig3_stragglers():
     from repro_torch.experiments import get_sweep, run_sweep
-    from repro_torch.kernels.coded_combine import LAUNCHES
 
     spec = get_sweep("fig3_stragglers", runs=1)
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    counters = reset_launches()
     t0 = time.perf_counter()
     gpu = run_sweep(spec, device="cuda", dtype=torch.float32)
     wall = time.perf_counter() - t0
@@ -916,9 +912,9 @@ def phase_fig3_stragglers():
     log(
         f"[fig3_stragglers] cuda f32: {len(gpu.cases)} runs x {iters} iters "
         f"in {gpu.n_dispatches} group(s), wall {wall:.3f} s, launches "
-        f"{dict(LAUNCHES)}"
+        f"{read_launches(counters)}"
     )
-    if LAUNCHES["coded_admm_update"] != iters * gpu.n_dispatches:
+    if counters["coded_admm_update"] != iters * gpu.n_dispatches:
         raise AssertionError("fig3_stragglers bypassed the fused kernel")
     cpu = run_sweep(spec, device="cpu", dtype=torch.float64)
     # f32 on the GPU against f64 on the CPU: float32 round-off (6e-8 per
@@ -947,7 +943,7 @@ def counted_sweep(spec, device):
     engine's per-group dispatch."""
     from repro_torch.experiments import run_sweep
     from repro_torch.experiments import sweep as engine
-    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.kernels._build import LAUNCHES
 
     rows = []
     dispatch = engine._dispatch_group
@@ -1247,7 +1243,7 @@ def phase_fleet(runs=1000, cpu_runs=2):
     copy of the loop is profiled for the device busy share, and the peak
     device memory and host RSS are read. Returns the card's K1 launches."""
     from repro_torch.experiments import get_sweep, run_sweep
-    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.methods import driver
 
     mem = meminfo_gb()
@@ -1390,7 +1386,7 @@ def phase_sharded(runs=5, iters=300, budget_mb="40"):
     the Trace path bit for bit, the summaries at 1e-12."""
     from repro_torch.experiments import get_sweep
     from repro_torch.experiments import sweep as engine
-    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.methods import driver, get_kernel, run_batch, run_sharded
 
     spec = get_sweep("fleet_frontier", iters=iters, runs=runs)
@@ -1462,7 +1458,7 @@ def phase_multi_card():
     against the one-card batch."""
     from repro_torch.experiments import get_sweep, run_sweep
     from repro_torch.experiments import sweep as engine
-    from repro_torch.kernels.coded_combine import LAUNCHES
+    from repro_torch.kernels._build import LAUNCHES
     from repro_torch.methods import get_kernel
 
     D = torch.cuda.device_count()
@@ -1716,23 +1712,11 @@ def hold_cache(label: str, got: dict, want: dict, tol: float) -> float:
     )
 
 
-def live_pairs(Sq: int, Skv: int, window, q_offset: int = 0) -> int:
-    """(query, key) pairs inside the causal/window band."""
-    qpos = np.arange(Sq, dtype=np.int64) + q_offset
-    hi = np.minimum(qpos, Skv - 1)
-    lo = np.zeros_like(qpos) if window is None else np.maximum(qpos - window + 1, 0)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def attention_work(B, S, H, KV, hd, window, dtype):
-    """(bytes, flops, peak flops) of one K3 call: q, k, v read and out
-    written once; 4 hd flops per live (query, key) pair (QK^T and PV) at
-    the peak rate for products of the input type. The softmax's
-    exponentials are not counted."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * es
-    flops = 4 * hd * live_pairs(S, S, window) * B * H
-    return nbytes, flops, PEAK_PRODUCT_FLOPS[dtype]
+def attention_call(B, S, H, KV, hd, window, dtype) -> dict:
+    """A K3 call as `portbench.work.flash_attention` reads it: q (B, S, H,
+    hd), k (B, S, KV, hd), ``window``, the inputs' dtype."""
+    return dict(shapes=[(B, S, H, hd), (B, S, KV, hd)], kwargs=dict(window=window),
+                dtypes=[dtype])
 
 
 def phase_attention_kernels():
@@ -1781,7 +1765,7 @@ def phase_attention_kernels():
             plain_ms=cuda_ms(plain, 2),
             library_ms=cuda_ms(library, reps),
         )
-        roofline(row, *attention_work(B, S, H, KV, hd, window, dtype))
+        roofline(row, *attention_work.forward(attention_call(B, S, H, KV, hd, window, dtype)))
         log("[kernels] " + json.dumps(row))
         rows.append(row)
         hold(f"flash_attention {shape_name}", out, want, ATTN_TOL[dtype])
@@ -1814,7 +1798,7 @@ def phase_attention_scan():
             t_k3 = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal), 20)
             t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
-            flops = 4 * hd * (live_pairs(S, S, None) if causal else S * S) * B * H
+            flops = 4 * hd * (attention_work.live_pairs(S, S, None) if causal else S * S) * B * H
             log("[attention-scan] " + json.dumps(dict(
                 causal=causal, B=B, S=S, ms=t_k3, library_ms=t_lib,
                 tflops=flops / t_k3 / 1e9, library_tflops=flops / t_lib / 1e9,
@@ -1859,17 +1843,6 @@ def phase_scan_kernels():
         del a, b, h0, h, want_h
         torch.cuda.empty_cache()
     return rows
-
-
-def attention_bwd_work(B, S, H, KV, hd, window, dtype):
-    """(bytes, flops, peak flops) of one K3 backward call: q, k, v, out and
-    dout read once (lse in f32), dq, dk, dv written once; 10 hd flops per
-    live (query, key) pair (S, dP, dV, dK, dQ) at the peak rate for
-    products of the input type."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * es + B * H * S * 4
-    flops = 10 * hd * live_pairs(S, S, window) * B * H
-    return nbytes, flops, PEAK_PRODUCT_FLOPS[dtype]
 
 
 def phase_backward_kernels():
@@ -1939,7 +1912,7 @@ def phase_backward_kernels():
             tol=ATTN_BWD_TOL[dtype], ms=cuda_ms(kern, 3), device_ms=times["device_ms"],
             passes=times["passes"], plain_ms=cuda_ms(plain, 1), library_ms=cuda_ms(library, 3),
         )
-        roofline(row, *attention_bwd_work(B, S, H, KV, hd, window, dtype))
+        roofline(row, *attention_work.backward(attention_call(B, S, H, KV, hd, window, dtype)))
         log("[kernels] " + json.dumps(row))
         rows.append(row)
         for n, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -1985,121 +1958,11 @@ def phase_backward_kernels():
     return rows
 
 
-# Variants of the bf16 K3 backward body, by text surgery on its source, to
-# show where its time goes: "red_atomics" adds dQ by float2 RED
-# instructions from registers in place of the TMA reduce-adds; "no_dq_adds"
-# issues no dQ adds at all (dQ wrong, dK and dV unchanged).
-_K3_DQ_STAGE = """        const uint32_t off = (col / 32) * kBox + sm90::swz128(row, (col % 32) / 4) + (col % 4) * 4;
-        *reinterpret_cast<float2*>(stage + off) = make_float2(scale * dq[i], scale * dq[i + 1]);"""
-_K3_DQ_RED = """        if (q0 + row < Sq)
-          atomicAdd(reinterpret_cast<float2*>(
-                        dq_acc + ((static_cast<int64_t>(b) * Sq + q0 + row) * H + h) * HD + col),
-                    make_float2(scale * dq[i], scale * dq[i + 1]));"""
-_K3_DQ_TMA = """        sm90::tma_reduce_add_4d(&tdq, stage + box * kBox, box * 32, h, q0, b);"""
-
-
-def k3_bwd_variants():
-    """{name: source text} of the bf16 K3 backward's variants."""
-    from repro_torch.kernels import _build
-
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    for anchor in (_K3_DQ_STAGE, _K3_DQ_TMA):
-        if src.count(anchor) != 1:
-            raise AssertionError(f"k3 backward variants: anchor not found once: {anchor!r}")
-    no_tma = src.replace(_K3_DQ_TMA, "        if (box < 0) " + _K3_DQ_TMA.lstrip())
-    return {"red_atomics": no_tma.replace(_K3_DQ_STAGE, _K3_DQ_RED), "no_dq_adds": no_tma}
-
-
-def phase_k3_bwd_variants():
-    """The bf16 K3 backward's main kernel against its variants
-    (`k3_bwd_variants`) at the bf16 shapes of ATTN_BWD_SHAPES, turn about
-    (kernel, variants, variants in reverse, kernel): device ms of the main
-    kernel, dK and dV checked bit for bit against the kernel and, for
-    red_atomics, dQ at the bf16 bound. A diagnostic: the launches do not
-    count for the main path."""
-    import ctypes
-    import importlib
-
-    from repro_torch.kernels import _build
-
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    libs, procs = {"kernel": _build.build("flash_attention")}, {}
-    for name, text in k3_bwd_variants().items():
-        (out / f"{name}.cu").write_text(text)
-        libs[name] = out / f"lib{name}.so"
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.flags("flash_attention"), "-I", str(_build.CSRC),
-             "-o", str(libs[name]), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        text = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise AssertionError(f"k3 backward variant {name} failed to build:\n{text}")
-    real_load = _build.load
-
-    def use(name):
-        _build.load = lambda _: ctypes.CDLL(str(libs[name]))
-        fa._lib.cache_clear()
-
-    order = ["kernel", *procs, *reversed(procs), "kernel"]
-    rows = []
-    try:
-        for shape_name, (B, S, H, KV, hd, window, dtype) in ATTN_BWD_SHAPES.items():
-            if dtype != torch.bfloat16:
-                continue
-            g = torch.Generator(device="cuda").manual_seed(S * hd + H + 2)
-            q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda").to(dtype)
-                       for n in (H, KV, KV))
-            do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
-            use("kernel")
-            with torch.no_grad():
-                o, lse = fa.flash_attention_kernel(q, k, v, causal=True, window=window,
-                                                   return_lse=True)
-
-            def call():
-                return fa.flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True,
-                                                     window=window)
-
-            ref = call()
-            row = dict(shape=shape_name, main_ms={n: [] for n in libs})
-            for name in order:
-                use(name)
-                got = call()
-                torch.cuda.synchronize()
-                if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])):
-                    raise AssertionError(f"k3 backward variant {name} {shape_name}: dK or dV moved")
-                if name != "no_dq_adds":
-                    hold(f"k3 backward variant {name} {shape_name} dq", got[0], ref[0],
-                         ATTN_BWD_TOL[dtype])
-                passes = (K3_BWD_KERNELS[0], "flash_attention_bwd_tc_kernel", K3_BWD_KERNELS[-1])
-                row["main_ms"][name].append(
-                    pass_times(name, call, 5, passes)["passes"]["flash_attention_bwd_tc_kernel"])
-            log("[k3-bwd-variants] " + json.dumps(row))
-            rows.append(row)
-            del q, k, v, do, o, lse, ref, got
-    finally:
-        _build.load = real_load
-        fa._lib.cache_clear()
-    return rows
-
-
-def ssd_work(B, S, H, P, N, chunk, dtype):
-    """(bytes, flops, peak flops) of one K4 call: x, dt, A, B, C read and y, h_fin
-    written once; per chunk of qc steps 2 (N + P) flops per causal (i, j)
-    pair (C B^T and its product with x) and 4 N P per step (the chunk's
-    state and the carried-in term), at the peak rate for products of the
-    input type. The exponentials are not counted."""
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (B * S * H * P + 2 * B * S * N) * es + (B * S * H + H) * 4
-    nbytes += (B * S * H * P + B * H * P * N) * 4
-    flops = 0
-    for c0 in range(0, S, chunk):
-        qc = min(chunk, S - c0)
-        flops += 2 * (qc * (qc + 1) // 2) * (N + P) + 4 * qc * N * P
-    flops *= B * H
-    return nbytes, flops, PEAK_PRODUCT_FLOPS[dtype]
+def ssd_call(B, S, H, P, N, chunk, dtype) -> dict:
+    """A K4 call as `portbench.work.ssd_scan` reads it: x (B, S, H, P), dt
+    (B, S, H), A (H,), Bm and Cm (B, S, N), ``chunk``, x's dtype."""
+    return dict(shapes=[(B, S, H, P), (B, S, H), (H,), (B, S, N), (B, S, N)],
+                kwargs=dict(chunk=chunk), dtypes=[dtype])
 
 
 def phase_ssd_kernels():
@@ -2156,7 +2019,7 @@ def phase_ssd_kernels():
                 plain_ms=cuda_ms(plain, 1), chunked_ms=cuda_ms(chunked, 3),
                 library_ms=None,
             )
-        roofline(row, *ssd_work(B, S, H, P, N, chunk, dtype))
+        roofline(row, *ssd_work.forward(ssd_call(B, S, H, P, N, chunk, dtype)))
         log("[kernels] " + json.dumps(row))
         log("[kernels] ssd_scan passes " + json.dumps(dict(
             shape=shape_name, body=kbody, device_ms=times["device_ms"],
@@ -2175,15 +2038,6 @@ def phase_ssd_kernels():
         torch.cuda.empty_cache()
     rows += ssd_bwd_rows()
     return rows
-
-
-def ssd_bwd_work(B, S, H, P, N, chunk, dtype):
-    """(bytes, flops, peak flops) of the gradient of one K4 call: twice the
-    forward's operations; the inputs read and their gradients written once
-    (the work of `portbench/work/ssd_scan.py::backward`)."""
-    es = torch.finfo(dtype).bits // 8
-    _, flops, peak = ssd_work(B, S, H, P, N, chunk, dtype)
-    return 2 * ((B * S * H * P + 2 * B * S * N) * es + (B * S * H + H) * 4), 2 * flops, peak
 
 
 def ssd_bwd_rows():
@@ -2290,7 +2144,7 @@ def ssd_bwd_rows():
             plain_ms=cuda_ms(lambda: chunked(x, dt, A, Bm, Cm, gy, None, chunk), 3),
             library_ms=None,
         )
-        roofline(row, *ssd_bwd_work(B, S, H, P, N, chunk, torch.bfloat16))
+        roofline(row, *ssd_work.backward(ssd_call(B, S, H, P, N, chunk, torch.bfloat16)))
         log("[kernels] " + json.dumps(row))
         log("[kernels] ssd_scan_bwd passes " + json.dumps(dict(
             shape=label, device_ms=times["device_ms"], all_kernels_ms=times["all_kernels_ms"],
@@ -2421,22 +2275,18 @@ def phase_conv_kernels():
     return rows
 
 
-def reset_launches():
-    from repro_torch.kernels.causal_conv import LAUNCHES as conv
-    from repro_torch.kernels.coded_combine import LAUNCHES as k12
-    from repro_torch.kernels.flash_attention import LAUNCHES as k3
-    from repro_torch.kernels.rglru_scan import LAUNCHES as k5
-    from repro_torch.kernels.ssd_scan import LAUNCHES as k4
+def reset_launches() -> dict:
+    """Zero the port's launch counter (`repro_torch.kernels._build.LAUNCHES`)
+    and return it."""
+    from repro_torch.kernels._build import LAUNCHES
 
-    counters = (k12, k3, k4, k5, conv)
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    return counters
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    return LAUNCHES
 
 
-def read_launches(counters) -> dict:
-    return {k: v for c in counters for k, v in c.items()}
+def read_launches(counters: dict) -> dict:
+    return dict(counters)
 
 
 def phase_serve(label, arch, batch, prompt_len, new_tokens, per_prefill, names,
@@ -3978,7 +3828,6 @@ def main() -> int:
     phase_attention_scan()
     rows += phase_scan_kernels()
     rows += phase_backward_kernels()
-    phase_k3_bwd_variants()
     rows += phase_ssd_kernels()
     rows += phase_conv_kernels()
     launches = phase_fig5()

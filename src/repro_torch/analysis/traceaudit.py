@@ -14,7 +14,7 @@ steps under ``inference_mode`` and counts:
   tensors to the plain twin. Coded grids must enter it once a step,
   the others never (``expect_kernel``).
 - ``k1_launches`` (card only, else None): the change of
-  `repro_torch.kernels.coded_combine.LAUNCHES` over the loop; it must
+  `repro_torch.kernels._build.LAUNCHES["coded_admm_update"]` over the loop; it must
   equal ``k1_calls``.
 - ``host_syncs`` (card only, else None): the loop runs under
   ``torch.cuda.set_sync_debug_mode("error")``, so any synchronisation
@@ -53,7 +53,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.experiments import Case
 from repro_torch.experiments.sweep import _materialize, _signature
 from repro_torch.kernels import ops
-from repro_torch.kernels.coded_combine import LAUNCHES
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.methods import get_kernel
 from repro_torch.methods.base import prepared_to_device, resolve_device
 from repro_torch.methods.driver import _stack

@@ -18,8 +18,11 @@ PyTorch versions.
 
 All are CUDA C++ for sm_90a. `ops` holds the public entry points (CUDA
 tensors -> kernel, CPU tensors -> plain version); `ref` the plain PyTorch
-versions; `coded_combine`, `flash_attention`, `rglru_scan`, `ssd_scan` and
-`causal_conv` the ctypes bindings with their launch counters; `_build` the nvcc build.
+versions (the forms the models' plain paths use too); `coded_combine`,
+`flash_attention`, `rglru_scan`, `ssd_scan` and `causal_conv` the ctypes
+bindings; `_build` the nvcc build and their one launch path (loader, error
+text, launch counter ``LAUNCHES``, grad refusal). Nothing here imports
+the model layer.
 """
 
 from .ops import (

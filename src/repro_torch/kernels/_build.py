@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA sources with nvcc, load them with ctypes, and
+launch their kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``_build/lib<name>_<hash>.so`` at first use. The
@@ -7,8 +8,18 @@ every local header it includes (``#include "x.cuh"`` under ``csrc/``,
 followed recursively), the global ``NVCC_FLAGS`` and the source's own
 ``EXTRA_FLAGS``. An edited source or header rebuilds; an unchanged one is
 reused. ``nvcc`` comes from ``$CUDA_HOME/bin``, the ``PATH``, or the
-toolkit's default prefix, in that order. Nothing here imports or runs at
+toolkit's default prefix, in that order. Nothing is built or loaded at
 module import time.
+
+Every source's C interface follows one convention, which ``Library``
+implements once: each kernel entry ``<kernel>`` is an export
+``<kernel>_launch`` that returns an int error code (0 for success), takes
+the current CUDA stream as its last argument and, where it takes several
+types, a code from ``DTYPE_CODE``; an ``<name>_error_string`` export turns
+a code into text. ``LAUNCHES`` counts the successful launches of every
+kernel entry, so a run can show that its main path went through the
+kernels; ``refuse_grad`` is the guard of the launchers that record no
+gradient.
 """
 
 from __future__ import annotations
@@ -20,9 +31,14 @@ import pathlib
 import re
 import shutil
 import subprocess
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["NVCC_FLAGS", "EXTRA_FLAGS", "BUILD_DIR", "build", "build_key", "flags", "load"]
+import torch
+
+__all__ = [
+    "NVCC_FLAGS", "EXTRA_FLAGS", "BUILD_DIR", "DTYPE_CODE", "LAUNCHES", "Library", "build",
+    "build_key", "flags", "load", "refuse_grad",
+]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
@@ -112,3 +128,67 @@ def load(name: str) -> ctypes.CDLL:
     """Open the library of ``csrc/<name>.cu``, building it if needed. Each
     call opens it anew: callers keep the handle they get."""
     return ctypes.CDLL(str(build(name)))
+
+
+# The type codes every source reads.
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+# Successful launches of each kernel entry: one call of a binding, all its passes.
+LAUNCHES: Dict[str, int] = dict.fromkeys((
+    "coded_combine", "coded_admm_update", "flash_attention", "flash_attention_bwd",
+    "rglru_scan", "rglru_scan_bwd", "ssd_scan", "ssd_scan_tc", "ssd_scan_bwd_tc",
+    "causal_conv_silu", "causal_conv_silu_bwd",
+), 0)
+# The ctypes types of the exports' arguments: pointer, int, int64.
+P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+class Library:
+    """The C interface of ``csrc/<name>.cu``: ``exports`` maps each function
+    it calls to its ctypes signature ``(restype, argtypes)``, the stream
+    included; ``errors`` names the error-text export (``<name>_error_string``
+    unless given). The library is built and opened, and every export
+    resolved, at the first use, never at import."""
+
+    def __init__(self, name: str, exports: Dict[str, Tuple[type, list]],
+                 errors: Optional[str] = None) -> None:
+        self.name = name
+        self.errors = errors or f"{name}_error_string"
+        self.exports = {**exports, self.errors: (ctypes.c_char_p, [I])}
+        self.fns: Dict[str, Callable] = {}  # filled at the first use
+
+    def fn(self, export: str) -> Callable:
+        """The ctypes function of ``export``."""
+        if not self.fns:
+            lib = load(self.name)
+            fns = {}
+            for name, (restype, argtypes) in self.exports.items():
+                fns[name] = f = getattr(lib, name)
+                f.restype, f.argtypes = restype, argtypes
+            self.fns = fns
+        return self.fns[export]
+
+    def launch(self, kernel: str, device: torch.device, *args) -> None:
+        """Call the export ``<kernel>_launch`` with ``args`` and ``device``'s
+        current stream last, with ``device`` current. A nonzero return
+        raises ``RuntimeError`` with the library's text for it; a launch
+        that returns 0 counts in ``LAUNCHES[kernel]``."""
+        f = self.fn(kernel + "_launch")
+        with torch.cuda.device(device):
+            err = f(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            msg = self.fn(self.errors)(err).decode()
+            raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
+        LAUNCHES[kernel] += 1
+
+
+def refuse_grad(launcher: str, entry: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where grad mode is on and one of ``tensors`` (None skipped)
+    requires a gradient: the raw launcher would return outputs that drop
+    it. ``entry`` names the function of `repro_torch.kernels.ops` to call
+    instead."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{launcher} is a raw launcher and records no gradient: call "
+            f"repro_torch.kernels.ops.{entry} (its autograd Function runs the backward "
+            "kernel), or call this under torch.no_grad()"
+        )

@@ -5,7 +5,7 @@ No TPU kernel stands behind these (the JAX package leaves its mixer's
 convolution to XLA as jnp code); the source, its bound and its design are
 in ``csrc/causal_conv.cu``. ``causal_conv_silu_kernel`` computes
 SiLU(causal depthwise conv(x, w) + b) over (B, S, C), bit for bit the
-plain form ``F.silu(models.layers.causal_conv(x, w, b))`` (the twin
+plain form ``F.silu(ref.causal_conv(x, w, b))`` (the twin
 ``ref.causal_conv_silu_ref``); ``causal_conv_silu_bwd_kernel`` its gradient
 (dx, dw, db), the closed form of ``ref.causal_conv_silu_bwd_ref``, with
 dw and db summed in a fixed order (two launches: the pass and the
@@ -17,61 +17,41 @@ column slice of a wider matrix is read in place), w (W, C) with
 1 <= W <= MAX_WIDTH, b (C,), or they raise. They record no gradient:
 `repro_torch.kernels.ops.causal_conv_silu` is the entry point (its
 autograd Function pairs them on the card; CPU tensors go to the plain
-version). ``LAUNCHES`` counts calls, one key a direction.
+version). ``_build.LAUNCHES`` counts calls, one key a direction.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-from . import _build
+from ._build import DTYPE_CODE, I, I64, P, Library, refuse_grad
 
-__all__ = ["LAUNCHES", "KERNEL_NAMES", "MAX_WIDTH", "causal_conv_silu_kernel",
-           "causal_conv_silu_bwd_kernel"]
+__all__ = ["KERNEL_NAMES", "MAX_WIDTH", "causal_conv_silu_kernel", "causal_conv_silu_bwd_kernel"]
 
 MAX_WIDTH = 4  # kMaxWidth of the source
-LAUNCHES: Dict[str, int] = {"causal_conv_silu": 0, "causal_conv_silu_bwd": 0}
 # The CUDA kernels of each direction, as a profiler names them.
 KERNEL_NAMES = {
     "forward": ("causal_conv_silu_kernel",),
     "backward": ("causal_conv_silu_bwd_kernel", "causal_conv_silu_bwd_reduce_kernel"),
 }
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("causal_conv")
-    lib.causal_conv_silu_launch.argtypes = [_I, _P, _P, _P, _P, _I, _I64, _I64, _I, _I64, _I64, _P]
-    lib.causal_conv_silu_launch.restype = _I
-    lib.causal_conv_silu_bwd_workspace_bytes.argtypes = [_I, _I, _I64, _I64, _I]
-    lib.causal_conv_silu_bwd_workspace_bytes.restype = _I64
-    lib.causal_conv_silu_bwd_launch.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I64, _I64, _P,
-    ]
-    lib.causal_conv_silu_bwd_launch.restype = _I
-    lib.causal_conv_error_string.argtypes = [_I]
-    lib.causal_conv_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("causal_conv", {
+    "causal_conv_silu_launch": (I, [I, P, P, P, P, I, I64, I64, I, I64, I64, P]),
+    "causal_conv_silu_bwd_workspace_bytes": (I64, [I, I, I64, I64, I]),
+    "causal_conv_silu_bwd_launch": (
+        I, [I, P, P, P, P, P, P, P, P, I, I64, I64, I, I64, I64, P]),
+})
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, what: str) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
-        raise RuntimeError(
-            f"{what} is a raw launcher and records no gradient: call "
-            "repro_torch.kernels.ops.causal_conv_silu, or call this under torch.no_grad()"
-        )
+    refuse_grad(what, "causal_conv_silu", x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got x on {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError(f"x dtype {x.dtype} not supported; the kernel is built for "
-                        f"{sorted(str(d) for d in _DTYPE_CODE)}")
+                        f"{sorted(str(d) for d in DTYPE_CODE)}")
     if x.dim() != 3 or min(x.shape) < 1 or x.stride(-1) != 1:
         raise ValueError(f"x must be a non-empty (B, S, C) with channel stride 1, got shape "
                          f"{tuple(x.shape)} strides {x.stride()}")
@@ -85,12 +65,6 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, what: str) -> None
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = _lib().causal_conv_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def causal_conv_silu_kernel(
     x: torch.Tensor,  # (B, S, C), channel stride 1
     w: torch.Tensor,  # (W, C)
@@ -100,14 +74,11 @@ def causal_conv_silu_kernel(
     _check(x, w, b, "causal_conv_silu_kernel")
     B, S, C = x.shape
     out = torch.empty((B, S, C), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().causal_conv_silu_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            B, S, C, w.shape[0], x.stride(0), x.stride(1), stream,
-        )
-    _raise_on(err, "causal_conv_silu")
-    LAUNCHES["causal_conv_silu"] += 1
+    _LIB.launch(
+        "causal_conv_silu", x.device,
+        DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        B, S, C, w.shape[0], x.stride(0), x.stride(1),
+    )
     return out
 
 
@@ -127,16 +98,12 @@ def causal_conv_silu_bwd_kernel(
     g = g.to(x.dtype).contiguous()
     dx = torch.empty((B, S, C), dtype=x.dtype, device=x.device)
     dw, db = torch.empty_like(w), torch.empty_like(b)
-    code = _DTYPE_CODE[x.dtype]
-    work = torch.empty((_lib().causal_conv_silu_bwd_workspace_bytes(code, B, S, C, W),),
+    code = DTYPE_CODE[x.dtype]
+    work = torch.empty((_LIB.fn("causal_conv_silu_bwd_workspace_bytes")(code, B, S, C, W),),
                        dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().causal_conv_silu_bwd_launch(
-            code, x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), work.data_ptr(), B, S, C, W, x.stride(0),
-            x.stride(1), stream,
-        )
-    _raise_on(err, "causal_conv_silu_bwd")
-    LAUNCHES["causal_conv_silu_bwd"] += 1
+    _LIB.launch(
+        "causal_conv_silu_bwd", x.device,
+        code, x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), work.data_ptr(), B, S, C, W, x.stride(0), x.stride(1),
+    )
     return dx, dw, db

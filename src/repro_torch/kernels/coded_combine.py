@@ -10,47 +10,25 @@ These wrappers only launch: they take CUDA tensors of exactly the layout
 the kernel reads and raise on anything else (device, dtype, shape,
 contiguity). `repro_torch.kernels.ops` is the entry point that converts
 arguments and sends CPU tensors to the plain versions in
-`repro_torch.kernels.ref`. ``LAUNCHES`` counts the launches of each kernel,
-so a run can show that its main path went through the kernel.
+`repro_torch.kernels.ref`. ``_build.LAUNCHES`` counts the launches of each
+kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict
-
 import torch
 
-from . import _build
+from ._build import DTYPE_CODE, I, I64, P, Library
 from .ref import compute_dtype
 
-__all__ = [
-    "LAUNCHES",
-    "MAX_J",
-    "coded_combine_kernel",
-    "coded_admm_update_kernel",
-]
+__all__ = ["MAX_J", "coded_combine_kernel", "coded_admm_update_kernel"]
 
 MAX_J = 16  # message rows (ECNs) the kernel accepts; kMaxJ in the source
-LAUNCHES: Dict[str, int] = {"coded_combine": 0, "coded_admm_update": 0}
 
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("coded_combine")
-    lib.coded_combine_launch.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I64, _P]
-    lib.coded_combine_launch.restype = _I
-    lib.coded_admm_update_launch.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I64, _P,
-    ]
-    lib.coded_admm_update_launch.restype = _I
-    lib.coded_error_string.argtypes = [_I]
-    lib.coded_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("coded_combine", {
+    "coded_combine_launch": (I, [I, P, P, P, P, I, I, I64, P]),
+    "coded_admm_update_launch": (I, [I, P, P, P, P, P, P, P, P, P, I, I, I64, P]),
+}, errors="coded_error_string")
 
 
 def _check(msgs: torch.Tensor, operands) -> None:
@@ -60,10 +38,10 @@ def _check(msgs: torch.Tensor, operands) -> None:
         raise ValueError(
             f"the CUDA kernel needs CUDA tensors, got msgs on {msgs.device}"
         )
-    if msgs.dtype not in _DTYPE_CODE:
+    if msgs.dtype not in DTYPE_CODE:
         raise TypeError(
             f"msgs dtype {msgs.dtype} not supported; the kernel is built "
-            f"for {sorted(str(d) for d in _DTYPE_CODE)}"
+            f"for {sorted(str(d) for d in DTYPE_CODE)}"
         )
     if msgs.dim() != 3 or not msgs.is_contiguous():
         raise ValueError(
@@ -90,16 +68,6 @@ def _check(msgs: torch.Tensor, operands) -> None:
             )
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = _lib().coded_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def coded_combine_kernel(
     msgs: torch.Tensor, coeffs: torch.Tensor, mask: torch.Tensor
 ) -> torch.Tensor:
@@ -112,13 +80,11 @@ def coded_combine_kernel(
     ))
     R, J, n = msgs.shape
     out = torch.empty((R, n), dtype=ct, device=msgs.device)
-    with torch.cuda.device(msgs.device):
-        err = _lib().coded_combine_launch(
-            _DTYPE_CODE[msgs.dtype], msgs.data_ptr(), coeffs.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), R, J, n, _stream(msgs),
-        )
-    _raise_on(err, "coded_combine")
-    LAUNCHES["coded_combine"] += 1
+    _LIB.launch(
+        "coded_combine", msgs.device,
+        DTYPE_CODE[msgs.dtype], msgs.data_ptr(), coeffs.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), R, J, n,
+    )
     return out
 
 
@@ -149,13 +115,10 @@ def coded_admm_update_kernel(
     ))
     R, J, n = msgs.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(msgs.device):
-        err = _lib().coded_admm_update_launch(
-            _DTYPE_CODE[msgs.dtype], msgs.data_ptr(), coeffs.data_ptr(),
-            mask.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            tau.data_ptr(), rho.data_ptr(), out.data_ptr(), R, J, n,
-            _stream(msgs),
-        )
-    _raise_on(err, "coded_admm_update")
-    LAUNCHES["coded_admm_update"] += 1
+    _LIB.launch(
+        "coded_admm_update", msgs.device,
+        DTYPE_CODE[msgs.dtype], msgs.data_ptr(), coeffs.data_ptr(),
+        mask.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        tau.data_ptr(), rho.data_ptr(), out.data_ptr(), R, J, n,
+    )
     return out

@@ -14,26 +14,23 @@ kernel; ``bwd_plan`` says which main body runs, with how many keys a
 block and which head split). Neither records a gradient:
 `repro_torch.kernels.ops` is the entry point, whose autograd Function
 pairs them on the card and which sends CPU tensors to the plain version.
-``LAUNCHES`` counts calls of each.
+``_build.LAUNCHES`` counts calls of each.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from ._build import DTYPE_CODE, I, I64, P, Library, refuse_grad
 
 __all__ = [
-    "LAUNCHES", "HEAD_DIMS", "BwdPlan", "bwd_plan", "flash_attention_kernel",
-    "flash_attention_bwd_kernel",
+    "HEAD_DIMS", "BwdPlan", "bwd_plan", "flash_attention_kernel", "flash_attention_bwd_kernel",
 ]
 
 HEAD_DIMS = (64, 128, 256)  # the instances compiled in the source
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+DTYPES = (torch.float32, torch.bfloat16)
 # The backward's main bodies by input dtype (the source's names), and the
 # keys a block of each holds by head dim (kBK of bwd::tcb and bwd::Cfg).
 BWD_BODIES = {torch.bfloat16: "flash_attention_bwd_tc_kernel",
@@ -43,33 +40,19 @@ BWD_KEYS = {
     "flash_attention_bwd_kernel": {64: 64, 128: 64, 256: 32},
 }
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = [
-        _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I64, _I64, _I, _I64, _I64, _P,
-    ]
-    lib.flash_attention_launch.restype = _I
-    lib.flash_attention_bwd_launch.argtypes = [
-        _I, _I, *[_P] * 13, _I, _I, _I, _I64, _I64, _I, _I64, _I, _P,
-    ]
-    lib.flash_attention_bwd_launch.restype = _I
-    lib.flash_attention_error_string.argtypes = [_I]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("flash_attention", {
+    "flash_attention_launch": (I, [I, I, P, P, P, P, P, I, I, I, I64, I64, I, I64, I64, P]),
+    "flash_attention_bwd_launch": (I, [I, I, *[P] * 13, I, I, I, I64, I64, I, I64, I, P]),
+})
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got q on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPES:
         raise TypeError(
             f"q dtype {q.dtype} not supported; the kernel is built for "
-            f"{sorted(str(d) for d in _DTYPE_CODE)}"
+            f"{sorted(str(d) for d in DTYPES)}"
         )
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-d: (B, S, heads, hd)")
@@ -90,21 +73,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is a raw launcher and records no gradient: call "
-            "repro_torch.kernels.ops.flash_attention (its autograd Function "
-            "runs the backward kernel), or call this under torch.no_grad()"
-        )
-
-
-def _raise(err: int, what: str) -> None:
-    if err != 0:
-        msg = _lib().flash_attention_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
 def flash_attention_kernel(
     q: torch.Tensor,  # (B, Sq, H, hd)
     k: torch.Tensor,  # (B, Skv, KV, hd)
@@ -122,7 +90,7 @@ def flash_attention_kernel(
 
     Under grad mode, inputs that require a gradient raise: this launcher
     would return an output that drops it."""
-    _refuse_grad("flash_attention_kernel", q, k, v)
+    refuse_grad("flash_attention_kernel", "flash_attention", q, k, v)
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
@@ -130,16 +98,12 @@ def flash_attention_kernel(
     Skv, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_attention_launch(
-            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KV, Sq,
-            Skv, int(causal), 0 if window is None else int(window), int(q_offset),
-            stream,
-        )
-    _raise(err, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _LIB.launch(
+        "flash_attention", q.device,
+        DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, H, KV, Sq,
+        Skv, int(causal), 0 if window is None else int(window), int(q_offset),
+    )
     return (out, lse) if return_lse else out
 
 
@@ -187,7 +151,7 @@ def flash_attention_bwd_kernel(
 ):
     """(dq, dk, dv) of the attention with query positions from 0, in the
     inputs' dtype and layout. Scratch (float32) is allocated here."""
-    _refuse_grad("flash_attention_bwd_kernel", q, k, v, out, dout)
+    refuse_grad("flash_attention_bwd_kernel", "flash_attention", q, k, v, out, dout)
     _check(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -215,14 +179,10 @@ def flash_attention_bwd_kernel(
     dk_part = torch.empty((split, B, Skv, KV, hd), **f32)
     dv_part = torch.empty_like(dk_part)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().flash_attention_bwd_launch(
-            _DTYPE_CODE[q.dtype], hd, *(t.data_ptr() for t in (
-                q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc, dk_part, dv_part)),
-            B, H, KV, Sq, Skv, int(causal), 0 if window is None else int(window),
-            split, stream,
-        )
-    _raise(err, "flash_attention_bwd")
-    LAUNCHES["flash_attention_bwd"] += 1
+    _LIB.launch(
+        "flash_attention_bwd", q.device,
+        DTYPE_CODE[q.dtype], hd, *(t.data_ptr() for t in (
+            q, k, v, out, dout, lse, dq, dk, dv, delta, dq_acc, dk_part, dv_part)),
+        B, H, KV, Sq, Skv, int(causal), 0 if window is None else int(window), split,
+    )
     return dq, dk, dv

@@ -36,6 +36,7 @@ from .ref import (
     compute_dtype,
     flash_attention_ref,
     rglru_scan_ref,
+    ssd_chunked,
     ssd_scan_ref,
 )
 from .rglru_scan import rglru_scan_bwd_kernel, rglru_scan_kernel
@@ -229,7 +230,7 @@ class _SSDScan(torch.autograd.Function):
     choice, kept on ``ctx``: where the forward ran the tensor-core body, the
     backward kernel (`ssd_scan_bwd_tc_kernel`); elsewhere (the CUDA-core
     domain and the CPU) plain PyTorch, which recomputes the port's
-    ``ssd_chunked`` from the saved inputs under autograd and returns its
+    ``ref.ssd_chunked`` from the saved inputs under autograd and returns its
     gradients. The JAX package has no backward kernel for its SSD scan
     (nothing there defines a custom VJP, and the reference trains through
     ``ssd_chunked``): the kernel computes the gradient of the same
@@ -254,8 +255,6 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        from repro_torch.models.mamba2 import ssd_chunked
-
         need = ctx.needs_input_grad[:5]
         saved = ctx.saved_tensors
         x, dt, A, Bm, Cm = saved
@@ -324,7 +323,7 @@ def causal_conv_silu(
     b: torch.Tensor,  # (C,)
 ) -> torch.Tensor:
     """SiLU of the Mamba-2 mixer's causal depthwise conv, in ``seq``'s
-    dtype: ``F.silu(models.layers.causal_conv(seq, w, b))``. On CUDA the
+    dtype: ``F.silu(ref.causal_conv(seq, w, b))``. On CUDA the
     kernel (bit for bit that expression; ``seq`` read through its strides,
     w and b of its dtype), on the CPU the plain version; differentiable on
     both."""

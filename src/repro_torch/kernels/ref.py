@@ -16,16 +16,22 @@ Counterparts of `repro.kernels.ref`:
   ``promote(dtype, float32)`` (float32 for the model's float32 gates);
   ``rglru_scan_bwd_ref`` its gradient, the reverse recurrence of the K5
   backward kernel.
-- ``causal_conv_silu_ref``: SiLU of the Mamba-2 mixer's causal depthwise
-  conv, the expression of `models.layers.causal_conv` + ``F.silu``
-  (float32, float64 for float64, rounded to the input's dtype before the
-  SiLU); ``causal_conv_silu_bwd_ref`` its gradient in float64 at the
-  input dtype's rounding points, the closed form of the CUDA backward.
+- ``causal_conv``: the causal depthwise conv of the Mamba-2 and
+  RecurrentGemma layers (float32, float64 for float64, rounded to the
+  input's dtype); ``causal_conv_silu_ref``: SiLU of it, the Mamba-2
+  mixer's conv + SiLU; ``causal_conv_silu_bwd_ref`` its gradient in
+  float64 at the input dtype's rounding points, the closed form of the
+  CUDA backward.
 - ``ssd_scan_ref``: the sequential Mamba-2 SSD recurrence, in
   ``promote(dtype, float32)`` (the reference computes in float32 and
   raises on float64 ``dt``; float64 here serves the gradient checks);
+  ``ssd_chunked`` the chunked form (the model's plain path and prefill,
+  and the gradient of K4 outside its tensor-core body);
   ``ssd_scan_bwd_ref`` the gradient of the chunked form, the algebra of
   the K4 backward kernel.
+
+Every one computes in ``compute_dtype`` of its inputs, the one widening
+rule of the port's layers and kernels.
 """
 
 from __future__ import annotations
@@ -44,16 +50,24 @@ __all__ = [
     "flash_attention_bwd_ref",
     "rglru_scan_ref",
     "rglru_scan_bwd_ref",
+    "causal_conv",
     "causal_conv_silu_ref",
     "causal_conv_silu_bwd_ref",
     "ssd_scan_ref",
+    "ssd_chunked",
     "ssd_scan_bwd_ref",
 ]
 
 
-def compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Accumulation dtype of both kernels: at least float32."""
-    return torch.promote_types(dtype, torch.float32)
+def compute_dtype(*dtypes: torch.dtype) -> torch.dtype:
+    """The type the plain forms, the layers and the kernels compute in:
+    ``dtypes`` promoted together and with float32 (float32 for bf16 and
+    f32, float64 for float64; the reference widens to float32, and
+    float64 serves the f64 checks)."""
+    ct = torch.float32
+    for dtype in dtypes:
+        ct = torch.promote_types(dtype, ct)
+    return ct
 
 
 def coded_combine_ref(
@@ -236,18 +250,31 @@ def rglru_scan_bwd_ref(
     return da, db, a[:, 0].to(ct) * g
 
 
+def causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over S in float32 (``compute_dtype``): out_t =
+    sum_j w_j x_{t-cw+1+j} + b, cast back to ``seq``'s dtype. seq (B, S, C),
+    w (cw, C), b (C,)."""
+    S = seq.shape[1]
+    cw = w.shape[0]
+    ct = compute_dtype(seq.dtype)
+    pad = F.pad(seq.to(ct), (0, 0, cw - 1, 0))
+    wf = w.to(ct)
+    out = pad[:, 0:S] * wf[0]
+    for j in range(1, cw):
+        out = out + pad[:, j:j + S] * wf[j]
+    return (out + b.to(ct)).to(seq.dtype)
+
+
 def causal_conv_silu_ref(
     seq: torch.Tensor,  # (B, S, C)
     w: torch.Tensor,  # (W, C)
     b: torch.Tensor,  # (C,)
 ) -> torch.Tensor:
     """SiLU(out), out_t = sum_j w_j x_{t-W+1+j} + b (x_t = 0 for t < 0):
-    ``F.silu(models.layers.causal_conv(seq, w, b))``, each product and sum
-    in ``promote(dtype, float32)`` in its tap order, rounded to ``seq``'s
+    ``F.silu(causal_conv(seq, w, b))``, each product and sum in
+    ``promote(dtype, float32)`` in its tap order, rounded to ``seq``'s
     dtype before the SiLU, which the CUDA kernel matches bit for bit.
     Differentiable."""
-    from ..models.layers import causal_conv  # imported here: `models` imports `kernels`
-
     return F.silu(causal_conv(seq, w, b))
 
 
@@ -295,7 +322,7 @@ def ssd_scan_ref(
 
     in ``promote(dtype, float32)`` of the inputs. Returns (y (B, S, H, P),
     h_final (B, H, P, N)). Differentiable (no in-place writes)."""
-    ct = compute_dtype(torch.promote_types(x.dtype, dt.dtype))
+    ct = compute_dtype(x.dtype, dt.dtype)
     B_, S, H, P = x.shape
     N = Bm.shape[-1]
     h = (
@@ -312,6 +339,80 @@ def ssd_scan_ref(
         h = a * h + xdt[..., None] * Bm[:, t].to(ct)[:, None, None, :]
         ys.append(torch.einsum("bhpn,bn->bhp", h, Cm[:, t].to(ct)))
     return torch.stack(ys, dim=1), h
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{j < t <= i}
+    a[..., t], -inf above the diagonal.
+
+    Each entry is summed directly (a cumulative sum down the rows of the
+    masked matrix a[t] [t > j]), not as the difference cs[i] - cs[j] of
+    one cumulative sum, which is the reference's form. The terms are all
+    <= 0, so a direct sum is accurate to its own size; the difference
+    loses eps * |cs| to cancellation, and |cs| reaches thousands within a
+    256-step chunk of mamba2-1.3b (A down to -16): in float32 a relative
+    error of about 1e-4 in every decay factor near the diagonal."""
+    Q = a.shape[-1]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=a.device)
+    terms = a[..., :, None].masked_fill(~torch.tril(tri, diagonal=-1), 0.0)
+    seg = torch.cumsum(terms, dim=-2)  # [i, j]: sum of a[t], j < t <= i
+    return seg.masked_fill(~torch.tril(tri), -math.inf)
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) post-softplus
+    A: torch.Tensor,  # (H,) negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Mamba-2 algorithm): returns (y (B, S, H, P), final
+    state (B, H, P, N)) in the compute dtype. Intra-chunk dual quadratic
+    form, inter-chunk state carried chunk by chunk; a ragged S is padded
+    with dt = 0 steps (decay 1, input 0: identities on the state)."""
+    ct = compute_dtype(x.dtype, dt.dtype, A.dtype, Bm.dtype, Cm.dtype)
+    B_, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    S_orig = S
+    if S % Q:
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S += pad
+    nc = S // Q
+    dt = dt.to(ct)
+    a = dt * A.to(ct)  # (B, S, H) log-decay per step
+    xdt = x.to(ct) * dt[..., None]
+    ac = a.reshape(B_, nc, Q, H)
+    xc = xdt.reshape(B_, nc, Q, H, P)
+    Bc = Bm.to(ct).reshape(B_, nc, Q, N)
+    Cc = Cm.to(ct).reshape(B_, nc, Q, N)
+
+    h = torch.zeros((B_, H, P, N), dtype=ct, device=x.device) if h0 is None else h0.to(ct)
+    ys = []
+    for c in range(nc):
+        a_t = ac[:, c].transpose(1, 2)  # (B, H, Q)
+        x_, B_in, C_in = xc[:, c], Bc[:, c], Cc[:, c]
+        cum = torch.cumsum(a_t, dim=-1)  # (B, H, Q)
+        L = torch.exp(_segsum(a_t))  # (B, H, Q, Q) decay from step j to i
+        scores = torch.einsum("bin,bjn->bij", C_in, B_in)  # (B, Q, Q)
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores[:, None] * L, x_)
+        # carried-in state: y_inter[i] = C_i h * exp(cum_i)
+        y_inter = torch.einsum("bin,bhpn->bihp", C_in, h) * torch.exp(cum).transpose(1, 2)[..., None]
+        # chunk-final state: h' = h exp(cum_Q) + sum_j exp(cum_Q - cum_j) x_j B_j^T,
+        # exp(cum_Q - cum_j) being L's last row
+        decay_out = L[..., -1, :]  # (B, H, Q)
+        h = h * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", x_ * decay_out.transpose(1, 2)[..., None], B_in
+        )
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(B_, S, H, P)
+    return y[:, :S_orig], h
 
 
 def _exclusive_cumsum(v: torch.Tensor, dim: int) -> torch.Tensor:
@@ -332,7 +433,7 @@ def ssd_scan_bwd_ref(
     chunk: int,
 ) -> Tuple[torch.Tensor, ...]:
     """The gradient of the chunked SSD scan from a zero state (the function
-    of ``ssd_scan_ref`` and `models.mamba2.ssd_chunked`), in
+    of ``ssd_scan_ref`` and ``ssd_chunked``), in
     ``promote(dtype, float32)``, written as the K4 backward kernel computes
     it. Returns (dx, ddt, dA, dBm, dCm).
 
@@ -353,7 +454,7 @@ def ssd_scan_bwd_ref(
       W_j = dt_j e_j x_j . dh_out B_j, Zd = D <dh_out, h_in>;
     - ddt_t = A da_t + x_t . (dx_t / dt_t), dA = sum_{b, t} dt_t da_t.
     """
-    ct = compute_dtype(torch.promote_types(x.dtype, dt.dtype))
+    ct = compute_dtype(x.dtype, dt.dtype)
     B_, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = chunk

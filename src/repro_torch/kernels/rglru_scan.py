@@ -12,49 +12,27 @@ chained scan over chunks of S (a reset kernel, then the scan kernel).
 The wrappers only launch: contiguous float32 CUDA tensors, or they raise,
 and neither records a gradient. `repro_torch.kernels.ops.rglru_scan` is
 the entry point: its autograd Function pairs them on the card, and it
-sends CPU tensors to the plain version. ``LAUNCHES`` counts calls: one
-call is the reset and the scan.
+sends CPU tensors to the plain version. ``_build.LAUNCHES`` counts calls:
+one call is the reset and the scan.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from ._build import I, I64, P, Library, refuse_grad
 
-__all__ = ["LAUNCHES", "CHUNK_STEPS", "rglru_scan_kernel", "rglru_scan_bwd_kernel"]
+__all__ = ["CHUNK_STEPS", "rglru_scan_kernel", "rglru_scan_bwd_kernel"]
 
-LAUNCHES: Dict[str, int] = {"rglru_scan": 0, "rglru_scan_bwd": 0}
 CHUNK_STEPS = 32  # steps of S per block: kChunk of the source
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rglru_scan")
-    lib.rglru_scan_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _P]
-    lib.rglru_scan_launch.restype = _I
-    lib.rglru_scan_bwd_launch.argtypes = [*[_P] * 9, _I, _I64, _I64, _P]
-    lib.rglru_scan_bwd_launch.restype = _I
-    lib.rglru_scan_scratch_bytes.argtypes = [_I, _I64, _I64]
-    lib.rglru_scan_scratch_bytes.restype = _I64
-    lib.rglru_scan_error_string.argtypes = [_I]
-    lib.rglru_scan_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is a raw launcher and records no gradient: call "
-            "repro_torch.kernels.ops.rglru_scan (its autograd Function runs "
-            "the backward kernel), or call this under torch.no_grad()"
-        )
+_LIB = Library("rglru_scan", {
+    "rglru_scan_launch": (I, [P, P, P, P, P, P, I, I64, I64, P]),
+    "rglru_scan_bwd_launch": (I, [*[P] * 9, I, I64, I64, P]),
+    "rglru_scan_scratch_bytes": (I64, [I, I64, I64]),
+})
 
 
 def _check(operands, device) -> None:
@@ -74,14 +52,8 @@ def _check(operands, device) -> None:
 
 def _scratch(B: int, S: int, W: int, device) -> torch.Tensor:
     return torch.empty(
-        _lib().rglru_scan_scratch_bytes(B, S, W), dtype=torch.uint8, device=device
+        _LIB.fn("rglru_scan_scratch_bytes")(B, S, W), dtype=torch.uint8, device=device
     )
-
-
-def _raise(err: int, what: str) -> None:
-    if err != 0:
-        msg = _lib().rglru_scan_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def rglru_scan_kernel(
@@ -93,7 +65,7 @@ def rglru_scan_kernel(
 
     Under grad mode, inputs that require a gradient raise: this launcher
     would return outputs that drop it."""
-    _refuse_grad("rglru_scan_kernel", a, b, h0)
+    refuse_grad("rglru_scan_kernel", "rglru_scan", a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got a on {a.device}")
     if a.dim() != 3:
@@ -106,14 +78,11 @@ def rglru_scan_kernel(
     h = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
     scratch = _scratch(B, S, W, a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib().rglru_scan_launch(
-            a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-            h.data_ptr(), h_last.data_ptr(), scratch.data_ptr(), B, S, W, stream,
-        )
-    _raise(err, "rglru_scan")
-    LAUNCHES["rglru_scan"] += 1
+    _LIB.launch(
+        "rglru_scan", a.device,
+        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+        h.data_ptr(), h_last.data_ptr(), scratch.data_ptr(), B, S, W,
+    )
     return h, h_last
 
 
@@ -128,7 +97,7 @@ def rglru_scan_bwd_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(da, db, dh0) of the recurrence, float32; dh0 is None unless
     ``want_dh0``."""
-    _refuse_grad("rglru_scan_bwd_kernel", a, h, h0, dh, dh_last)
+    refuse_grad("rglru_scan_bwd_kernel", "rglru_scan", a, h, h0, dh, dh_last)
     if a.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got a on {a.device}")
     if a.dim() != 3:
@@ -144,12 +113,9 @@ def rglru_scan_bwd_kernel(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _lib().rglru_scan_bwd_launch(
-            a.data_ptr(), h.data_ptr(), ptr(h0), dh.data_ptr(), ptr(dh_last),
-            da.data_ptr(), db.data_ptr(), ptr(dh0), scratch.data_ptr(), B, S, W, stream,
-        )
-    _raise(err, "rglru_scan_bwd")
-    LAUNCHES["rglru_scan_bwd"] += 1
+    _LIB.launch(
+        "rglru_scan_bwd", a.device,
+        a.data_ptr(), h.data_ptr(), ptr(h0), dh.data_ptr(), ptr(dh_last),
+        da.data_ptr(), db.data_ptr(), ptr(dh0), scratch.data_ptr(), B, S, W,
+    )
     return da, db, dh0

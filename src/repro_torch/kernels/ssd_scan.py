@@ -31,34 +31,32 @@ output gradients, every product on wgmma with float32 accumulation (its
 design is in the source's note). The JAX package has no backward kernel
 for its scan (it differentiates its jnp path), so the kernel is held to
 the plain twin ``ref.ssd_scan_bwd_ref`` and to autograd of the port's
-``ssd_chunked``. Elsewhere (float32, other shapes, the CPU) the gradient
-is autograd of ``ssd_chunked`` (`ops._SSDScan`).
+``ref.ssd_chunked``. Elsewhere (float32, other shapes, the CPU) the
+gradient is autograd of ``ref.ssd_chunked`` (`ops._SSDScan`).
 
 The wrappers only launch: contiguous CUDA tensors, x/Bm/Cm in one of
 float32 or bfloat16, dt and A in float32, P <= 64, N <= 128 and
 1 <= chunk <= 1024, or they raise. `repro_torch.kernels.ops.ssd_scan` is
 the entry point (CPU tensors to the plain version, and the gradient).
-``LAUNCHES`` counts calls, one key per body and one for the backward: one
-call is its passes.
+``_build.LAUNCHES`` counts calls, one key per body and one for the
+backward: one call is its passes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from ._build import DTYPE_CODE, I, I64, P, Library
 
 __all__ = [
-    "LAUNCHES", "MAX_P", "MAX_N", "MAX_CHUNK", "KERNEL_NAMES", "TC_CHUNKS",
+    "MAX_P", "MAX_N", "MAX_CHUNK", "KERNEL_NAMES", "TC_CHUNKS",
     "ssd_body", "ssd_scan_kernel", "ssd_scan_tc_kernel", "ssd_scan_bwd_tc_kernel",
 ]
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024  # the tiles of the source
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_tc": 0, "ssd_scan_bwd_tc": 0}
 # The CUDA kernels each body launches, as a profiler names them.
 KERNEL_NAMES = {
     "tensor_cores": ("ssd_scores_kernel", "ssd_scan_tc_kernel"),
@@ -72,37 +70,23 @@ KERNEL_NAMES = {
 }
 TC_CHUNKS = (64, 128, 256)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+DTYPES = (torch.float32, torch.bfloat16)
 
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
-    lib.ssd_scan_launch.argtypes = [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _I, _I, _P,
-    ]
-    lib.ssd_scan_launch.restype = _I
-    lib.ssd_scan_tc_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I, _I, _P,
-    ]
-    lib.ssd_scan_tc_launch.restype = _I
-    lib.ssd_scan_bwd_tc_workspace.argtypes = [_I, _I64, _I, _I]
-    lib.ssd_scan_bwd_tc_workspace.restype = ctypes.c_size_t
-    lib.ssd_scan_bwd_tc_launch.argtypes = [_P] * 12 + [_I, _P, _I, _I64, _I, _I, _P]
-    lib.ssd_scan_bwd_tc_launch.restype = _I
-    lib.ssd_scan_error_string.argtypes = [_I]
-    lib.ssd_scan_error_string.restype = ctypes.c_char_p
-    return lib
+_LIB = Library("ssd_scan", {
+    "ssd_scan_launch": (I, [I, P, P, P, P, P, P, P, P, P, I, I64, I, I, I, I, P]),
+    "ssd_scan_tc_launch": (I, [P, P, P, P, P, P, P, P, I, I64, I, I, P]),
+    "ssd_scan_bwd_tc_workspace": (ctypes.c_size_t, [I, I64, I, I]),
+    "ssd_scan_bwd_tc_launch": (I, [P] * 12 + [I, P, I, I64, I, I, P]),
+})
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got x on {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPES:
         raise TypeError(
             f"x dtype {x.dtype} not supported; the kernel is built for "
-            f"{sorted(str(d) for d in _DTYPE_CODE)}"
+            f"{sorted(str(d) for d in DTYPES)}"
         )
     if x.dim() != 4:
         raise ValueError(f"x must be (B, S, H, P), got shape {tuple(x.shape)}")
@@ -173,15 +157,12 @@ def ssd_scan_kernel(
     h_fin = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     states = torch.empty((B, H, nc, N, P), dtype=torch.float32, device=dev)
     decay = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ssd_scan_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
-            states.data_ptr(), decay.data_ptr(), B, S, H, P, N, chunk, stream,
-        )
-    _raise_on(err)
-    LAUNCHES["ssd_scan"] += 1
+    _LIB.launch(
+        "ssd_scan", dev,
+        DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
+        states.data_ptr(), decay.data_ptr(), B, S, H, P, N, chunk,
+    )
     return y, h_fin
 
 
@@ -205,14 +186,11 @@ def ssd_scan_tc_kernel(
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=dev)
     h_fin = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
     scores = torch.empty((B, nc, chunk, chunk), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ssd_scan_tc_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), h_fin.data_ptr(), scores.data_ptr(), B, S, H, chunk, stream,
-        )
-    _raise_on(err)
-    LAUNCHES["ssd_scan_tc"] += 1
+    _LIB.launch(
+        "ssd_scan_tc", dev,
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), h_fin.data_ptr(), scores.data_ptr(), B, S, H, chunk,
+    )
     return y, h_fin
 
 
@@ -256,22 +234,13 @@ def ssd_scan_bwd_tc_kernel(
     dBm, dCm = torch.empty_like(Bm, dtype=grad_dtype), torch.empty_like(Cm, dtype=grad_dtype)
     ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     dA = torch.empty((H,), dtype=torch.float32, device=dev)
-    work = torch.empty((_lib().ssd_scan_bwd_tc_workspace(B, S, H, chunk),), dtype=torch.uint8,
-                       device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().ssd_scan_bwd_tc_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            gy.data_ptr(), None if gh is None else gh.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
-            int(grad_dtype == torch.float32), work.data_ptr(), B, S, H, chunk, stream,
-        )
-    _raise_on(err)
-    LAUNCHES["ssd_scan_bwd_tc"] += 1
+    work = torch.empty((_LIB.fn("ssd_scan_bwd_tc_workspace")(B, S, H, chunk),),
+                       dtype=torch.uint8, device=dev)
+    _LIB.launch(
+        "ssd_scan_bwd_tc", dev,
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        gy.data_ptr(), None if gh is None else gh.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dBm.data_ptr(), dCm.data_ptr(),
+        int(grad_dtype == torch.float32), work.data_ptr(), B, S, H, chunk,
+    )
     return dx, ddt, dA, dBm, dCm
-
-
-def _raise_on(err: int) -> None:
-    if err != 0:
-        msg = _lib().ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} ({msg})")

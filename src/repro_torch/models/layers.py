@@ -6,16 +6,17 @@ conventions:
   B batch, S sequence, D d_model, H query heads, KV kv heads, hd head_dim,
   F d_ff, W attention window.
 
-and its numerics: norms, RoPE and attention compute in float32 (``widened``,
-float64 for float64 inputs) and cast back, masked
-scores take ``NEG_INF = -1e30``, attention scores and softmax run in
-float32, and decode attention rounds the scaled query and the
+and its numerics: norms, RoPE and attention compute in float32
+(`repro_torch.kernels.ref.compute_dtype`, float64 for float64 inputs) and
+cast back, masked scores take ``NEG_INF = -1e30``, attention scores and
+softmax run in float32, and decode attention rounds the scaled query and the
 probabilities to the cache's storage dtype before float32-accumulated
 products. Weights are stored ``(in, out)`` and applied as ``x @ W``.
 
 The flash-attention kernel lives in `repro_torch.kernels`; the functions
 here are the plain paths (``attn_impl="plain"``) and decode, which no
-kernel serves.
+kernel serves. ``causal_conv``, the plain form a kernel is held to, lives
+in `repro_torch.kernels.ref` and is named here too.
 """
 
 from __future__ import annotations
@@ -26,10 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ref import causal_conv, compute_dtype
+
 __all__ = [
     "NEG_INF",
     "ParamModule",
-    "widened",
     "rmsnorm",
     "layernorm",
     "rope_frequencies",
@@ -107,15 +109,9 @@ class ParamModule(nn.Module):
 # --------------------------------------------------------------------------
 
 
-def widened(dtype: torch.dtype) -> torch.dtype:
-    """The type the layers compute in: float32, or float64 for float64
-    (the reference widens to float32; float64 serves the f64 checks)."""
-    return torch.promote_types(dtype, torch.float32)
-
-
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.to(widened(dt))
+    x = x.to(compute_dtype(dt))
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.to(x.dtype))).to(dt)
 
@@ -124,7 +120,7 @@ def layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     dt = x.dtype
-    x = x.to(widened(dt))
+    x = x.to(compute_dtype(dt))
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
@@ -157,7 +153,7 @@ def apply_rope(
     rot = int(hd * fraction)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
-    ct = widened(x.dtype)
+    ct = compute_dtype(x.dtype)
 
     if mrope_sections is not None:
         # Qwen2-VL M-RoPE: the rot/2 frequency slots are split into three
@@ -220,7 +216,7 @@ def naive_attention(
     """Full-matrix attention (short sequences)."""
     Sq, hd = q.shape[1], q.shape[3]
     Skv = k.shape[1]
-    ct = widened(q.dtype)
+    ct = compute_dtype(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * _scale(hd, ct)
     dev = q.device
     qpos = torch.arange(Sq, device=dev) + q_offset
@@ -249,7 +245,7 @@ def blocked_attention(
     if S % block_q or S % block_kv:
         raise ValueError(f"S={S} is not a multiple of blocks {block_q}/{block_kv}")
     nq, nk = S // block_q, S // block_kv
-    ct = widened(q.dtype)
+    ct = compute_dtype(q.dtype)
     scale = _scale(hd, ct)
     dev = q.device
     qb = q.reshape(B, nq, block_q, H, hd).permute(1, 0, 3, 2, 4)  # (nq,B,H,bq,hd)
@@ -343,13 +339,13 @@ def moe_capacity(tokens_per_group: int, capacity_factor: float, top_k: int, n_ex
 
 def moe_route(xg: torch.Tensor, router: torch.Tensor, top_k: int):
     """Router of ``moe_apply``: (probs (G, Tg, E), gate values (G, Tg, k)
-    before renormalisation, expert indices (G, Tg, k)), in ``widened``
+    before renormalisation, expert indices (G, Tg, k)), in ``compute_dtype``
     precision (float32 for bf16 and f32 inputs). Top-k by a stable
     descending sort: on equal probabilities the lower expert index comes
     first, as ``jax.lax.top_k`` orders them (``torch.topk`` promises no
     order for ties). The gate values are gathered from ``probs``, so
     their gradient reaches the selected probabilities only."""
-    ct = widened(xg.dtype)
+    ct = compute_dtype(xg.dtype)
     logits = torch.einsum("gtd,de->gte", xg.to(ct), router.to(ct))
     probs = torch.softmax(logits, dim=-1)
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :top_k]
@@ -385,7 +381,7 @@ def moe_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice routing with per-expert capacity (the reference's
     ``moe_apply``). Returns (out (T, D) in x's dtype, the load-balance
-    aux loss, a scalar in ``widened`` precision).
+    aux loss, a scalar in ``compute_dtype`` precision).
 
     Tokens split into ``groups`` groups of Tg = T / G, each with its own
     capacity C = ``moe_capacity(Tg, ...)`` per expert. A slot (token,
@@ -440,23 +436,8 @@ def moe_apply(
 
 
 # --------------------------------------------------------------------------
-# Convolution, rematerialisation
+# Rematerialisation
 # --------------------------------------------------------------------------
-
-
-def causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over S in float32 (``widened``): out_t =
-    sum_j w_j x_{t-cw+1+j} + b, cast back to ``seq``'s dtype. seq (B, S, C),
-    w (cw, C), b (C,)."""
-    S = seq.shape[1]
-    cw = w.shape[0]
-    ct = widened(seq.dtype)
-    pad = F.pad(seq.to(ct), (0, 0, cw - 1, 0))
-    wf = w.to(ct)
-    out = pad[:, 0:S] * wf[0]
-    for j in range(1, cw):
-        out = out + pad[:, j:j + S] * wf[j]
-    return (out + b.to(ct)).to(seq.dtype)
 
 
 def _save_products(ctx, func, *args, **kwargs):

@@ -19,7 +19,8 @@ reference's stacked arrays. Its entry points:
 
 The training forward's SSD runs through K4 (``ssm_impl="kernel"``:
 `repro_torch.kernels.ops.ssd_scan`, the CUDA kernel on the card, with a
-gradient) or the plain chunked form ``ssd_chunked`` (``"plain"``), layer
+gradient) or the plain chunked form ``ssd_chunked`` (``"plain"``; it lives
+in `repro_torch.kernels.ref`, beside the kernel it differentiates), layer
 by layer under ``maybe_remat``; with ``"kernel"`` the causal conv + SiLU
 before it runs through `repro_torch.kernels.ops.causal_conv_silu` too,
 in training and prefill. Prefill always uses ``ssd_chunked`` (it
@@ -39,25 +40,17 @@ Cache (the reference's layout): ssm (L, B, H, P, N) float32, conv
 
 from __future__ import annotations
 
-import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import causal_conv, compute_dtype, ssd_chunked
 
 from .config import ModelConfig
-from .layers import (
-    ParamModule,
-    _const,
-    _normal,
-    causal_conv,
-    maybe_remat,
-    rmsnorm,
-    widened,
-)
+from .layers import ParamModule, _const, _normal, maybe_remat, rmsnorm
 from .losses import lm_loss
 
 __all__ = ["Mamba2Block", "Mamba2", "ssd_chunked", "ssd_decode", "mixer_spec", "init_A_log",
@@ -73,90 +66,9 @@ def _dims(cfg: ModelConfig):
     return di, H, P, N, conv_dim
 
 
-def _ct(*tensors) -> torch.dtype:
-    dt = tensors[0].dtype
-    for t in tensors[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return widened(dt)
-
-
 # --------------------------------------------------------------------------
-# SSD core (plain)
+# SSD decode (the chunked form ``ssd_chunked`` is in `repro_torch.kernels.ref`)
 # --------------------------------------------------------------------------
-
-
-def _segsum(a: torch.Tensor) -> torch.Tensor:
-    """Lower-triangular segment sums: out[..., i, j] = sum_{j < t <= i}
-    a[..., t], -inf above the diagonal.
-
-    Each entry is summed directly (a cumulative sum down the rows of the
-    masked matrix a[t] [t > j]), not as the difference cs[i] - cs[j] of
-    one cumulative sum, which is the reference's form. The terms are all
-    <= 0, so a direct sum is accurate to its own size; the difference
-    loses eps * |cs| to cancellation, and |cs| reaches thousands within a
-    256-step chunk of mamba2-1.3b (A down to -16): in float32 a relative
-    error of about 1e-4 in every decay factor near the diagonal."""
-    Q = a.shape[-1]
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=a.device)
-    terms = a[..., :, None].masked_fill(~torch.tril(tri, diagonal=-1), 0.0)
-    seg = torch.cumsum(terms, dim=-2)  # [i, j]: sum of a[t], j < t <= i
-    return seg.masked_fill(~torch.tril(tri), -math.inf)
-
-
-def ssd_chunked(
-    x: torch.Tensor,  # (B, S, H, P)
-    dt: torch.Tensor,  # (B, S, H) post-softplus
-    A: torch.Tensor,  # (H,) negative
-    Bm: torch.Tensor,  # (B, S, N)
-    Cm: torch.Tensor,  # (B, S, N)
-    chunk: int,
-    h0: Optional[torch.Tensor] = None,  # (B, H, P, N)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD (Mamba-2 algorithm): returns (y (B, S, H, P), final
-    state (B, H, P, N)) in the compute dtype. Intra-chunk dual quadratic
-    form, inter-chunk state carried chunk by chunk; a ragged S is padded
-    with dt = 0 steps (decay 1, input 0: identities on the state)."""
-    ct = _ct(x, dt, A, Bm, Cm)
-    B_, S, H, P = x.shape
-    N = Bm.shape[-1]
-    Q = chunk
-    S_orig = S
-    if S % Q:
-        pad = Q - S % Q
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-        S += pad
-    nc = S // Q
-    dt = dt.to(ct)
-    a = dt * A.to(ct)  # (B, S, H) log-decay per step
-    xdt = x.to(ct) * dt[..., None]
-    ac = a.reshape(B_, nc, Q, H)
-    xc = xdt.reshape(B_, nc, Q, H, P)
-    Bc = Bm.to(ct).reshape(B_, nc, Q, N)
-    Cc = Cm.to(ct).reshape(B_, nc, Q, N)
-
-    h = torch.zeros((B_, H, P, N), dtype=ct, device=x.device) if h0 is None else h0.to(ct)
-    ys = []
-    for c in range(nc):
-        a_t = ac[:, c].transpose(1, 2)  # (B, H, Q)
-        x_, B_in, C_in = xc[:, c], Bc[:, c], Cc[:, c]
-        cum = torch.cumsum(a_t, dim=-1)  # (B, H, Q)
-        L = torch.exp(_segsum(a_t))  # (B, H, Q, Q) decay from step j to i
-        scores = torch.einsum("bin,bjn->bij", C_in, B_in)  # (B, Q, Q)
-        y_intra = torch.einsum("bhij,bjhp->bihp", scores[:, None] * L, x_)
-        # carried-in state: y_inter[i] = C_i h * exp(cum_i)
-        y_inter = torch.einsum("bin,bhpn->bihp", C_in, h) * torch.exp(cum).transpose(1, 2)[..., None]
-        # chunk-final state: h' = h exp(cum_Q) + sum_j exp(cum_Q - cum_j) x_j B_j^T,
-        # exp(cum_Q - cum_j) being L's last row
-        decay_out = L[..., -1, :]  # (B, H, Q)
-        h = h * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
-            "bjhp,bjn->bhpn", x_ * decay_out.transpose(1, 2)[..., None], B_in
-        )
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(B_, S, H, P)
-    return y[:, :S_orig], h
 
 
 def ssd_decode(
@@ -168,7 +80,7 @@ def ssd_decode(
     h: torch.Tensor,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-step recurrence: h = exp(dt A) h + (dt x) B^T; y = h C."""
-    ct = _ct(dt, h)
+    ct = compute_dtype(dt.dtype, h.dtype)
     a = torch.exp(dt[:, 0, :, None, None].to(ct) * A.to(ct)[None, :, None, None])
     xdt = x[:, 0].to(ct) * dt[:, 0, :, None].to(ct)
     h_new = a * h + xdt[..., None] * Bm[:, 0].to(ct)[:, None, None, :]
@@ -282,7 +194,7 @@ def ssm_mixer_step(cfg: ModelConfig, lp, h: torch.Tensor, ssm: torch.Tensor,
     B_ = h.shape[0]
     z, xBC, dt_raw = torch.split(h @ lp.w_in, [di, conv_dim, H], dim=-1)
     window = torch.cat([conv, xBC], dim=1)  # (B, W, conv)
-    ct = widened(window.dtype)
+    ct = compute_dtype(window.dtype)
     conv_out = torch.einsum("bwc,wc->bc", window.to(ct), lp.conv_w.to(ct)) + lp.conv_b.to(ct)
     xBC = F.silu(conv_out)[:, None].to(h.dtype)
     xs, Bm, Cm = torch.split(xBC, [di, N, N], dim=-1)
@@ -295,7 +207,7 @@ def ssm_mixer_step(cfg: ModelConfig, lp, h: torch.Tensor, ssm: torch.Tensor,
 def _dt_A(lp, dt_raw: torch.Tensor):
     """dt = softplus(dt_raw + dt_bias) and A = -exp(A_log) in the widened
     type (float32 for the bf16 and f32 models)."""
-    ct = widened(dt_raw.dtype)
+    ct = compute_dtype(dt_raw.dtype)
     x = dt_raw.to(ct) + lp.dt_bias.to(ct)
     dt = torch.logaddexp(x, torch.zeros_like(x))  # stable softplus
     return dt, -torch.exp(lp.A_log.to(ct))

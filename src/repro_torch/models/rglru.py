@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import compute_dtype
 
 from .config import ModelConfig
 from .layers import (
@@ -54,7 +55,6 @@ from .layers import (
     maybe_remat,
     mlp_apply,
     rmsnorm,
-    widened,
 )
 from .losses import lm_loss
 from .transformer import _to_ring, attend
@@ -138,7 +138,7 @@ class AttnBlock(ParamModule):
 def _gates(lp, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(a, b) of the recurrence h_t = a_t h_{t-1} + b_t, float32 (float64
     for float64 inputs). x (B, S, W)."""
-    ct = widened(x.dtype)
+    ct = compute_dtype(x.dtype)
     xf = x.to(ct)
     r = torch.sigmoid(xf @ lp.lru_wa.to(ct) + lp.lru_ba.to(ct))
     i = torch.sigmoid(xf @ lp.lru_wx.to(ct) + lp.lru_bx.to(ct))
@@ -189,11 +189,11 @@ def rglru_step(
 def _rec_block_seq(cfg: ModelConfig, lp, x, h0: Optional[torch.Tensor] = None):
     B = x.shape[0]
     h = rmsnorm(x, lp.ln)
-    gate = gelu((h @ lp.w_gate_in).to(widened(x.dtype))).to(x.dtype)
+    gate = gelu((h @ lp.w_gate_in).to(compute_dtype(x.dtype))).to(x.dtype)
     xb = h @ lp.w_x
     xb = causal_conv(xb, lp.conv_w, lp.conv_b)
     if h0 is None:
-        h0 = torch.zeros((B, cfg.lru_width), dtype=widened(x.dtype), device=x.device)
+        h0 = torch.zeros((B, cfg.lru_width), dtype=compute_dtype(x.dtype), device=x.device)
     if cfg.ssm_impl == "kernel":
         a, bb = _gates(lp, xb)
         hs, h_last = ops.rglru_scan(a, bb, h0)

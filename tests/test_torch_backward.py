@@ -25,8 +25,7 @@ import torch
 
 import repro.kernels.ref as r_ref
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
-from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.models.mamba2 import ssd_chunked
 
 TOL = 1e-10
@@ -154,7 +153,7 @@ def test_differentiable_entry_points_run_plain_autograd_on_the_cpu():
     ops.rglru_scan differentiate their plain versions (no kernel, no
     launch); the gradients are the twins'."""
     rng = np.random.default_rng(0)
-    before = dict(FA_LAUNCHES), dict(RG_LAUNCHES)
+    before = dict(LAUNCHES)
     q = torch.from_numpy(rng.standard_normal((1, 12, 4, 16))).requires_grad_(True)
     kv = torch.from_numpy(rng.standard_normal((2, 1, 12, 2, 16))).requires_grad_(True)
     out = ops.flash_attention(q, kv[0], kv[1], causal=True, window=5)
@@ -174,4 +173,4 @@ def test_differentiable_entry_points_run_plain_autograd_on_the_cpu():
     da, db = torch.autograd.grad((h * dh).sum() + h_last.sum(), (a, b))
     want = ref.rglru_scan_bwd_ref(a.detach(), h.detach(), None, dh, torch.ones_like(h_last))
     assert _normwise(da, want[0]) <= TOL and _normwise(db, want[1]) <= TOL
-    assert (dict(FA_LAUNCHES), dict(RG_LAUNCHES)) == before
+    assert LAUNCHES == before

@@ -1,8 +1,9 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py` and
 `tools/torch_trace_lint.py` import neither JAX nor the reference package
 `repro`, and importing the port builds no kernel (no nvcc, no CUDA
-needed)."""
+needed). Its kernels layer depends on nothing above it."""
 
+import ast
 import os
 import pathlib
 import re
@@ -34,9 +35,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         # importing loads (and builds) no kernel
-        for mod in ("coded_combine", "flash_attention", "rglru_scan", "ssd_scan"):
-            lib = sys.modules["repro_torch.kernels." + mod]._lib
-            assert lib.cache_info().currsize == 0, mod
+        from repro_torch.kernels._build import Library
+        libs = [v for m in list(sys.modules.values()) for v in vars(m).values()
+                if isinstance(v, Library)]
+        assert sorted(lib.name for lib in libs) == sorted(
+            ["causal_conv", "coded_combine", "flash_attention", "rglru_scan", "ssd_scan"])
+        assert not [lib.name for lib in libs if lib.fns], libs
         for mod in ("models.transformer", "models.rglru", "models.params",
                     "configs.qwen3_0_6b", "configs.recurrentgemma_9b",
                     "launch.serve", "models.mamba2", "models.losses",
@@ -84,3 +88,27 @@ def test_sources_never_import_jax_or_repro():
     assert FORBIDDEN.search("from repro.core import coding")
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    import repro\n")
+
+
+def test_kernels_import_nothing_of_the_models():
+    """No module under `repro_torch/kernels` imports `repro_torch.models`
+    (absolutely or relatively, at module level or inside a function): the
+    plain forms a kernel is held to or differentiates live in
+    `kernels/ref.py`, so an edit to a model cannot move a kernel's twin."""
+    files = sorted((PKG / "kernels").glob("*.py"))
+    assert len(files) >= 8
+    offenders = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                # in kernels/x.py, level 1 is repro_torch.kernels, level 2 repro_torch
+                pkg = ["", "repro_torch.kernels", "repro_torch"][node.level]
+                mod = ".".join(p for p in (pkg, node.module) if p)
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            offenders += [f"{path.name}:{node.lineno} {n}" for n in names
+                          if n.split(".")[:2] == ["repro_torch", "models"]]
+    assert not offenders, offenders

@@ -40,16 +40,10 @@ from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.coded_combine import (
-    LAUNCHES,
-    coded_admm_update_kernel,
-    coded_combine_kernel,
-)
-from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
+from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels.coded_combine import coded_admm_update_kernel, coded_combine_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
-from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
 from repro_torch.kernels.rglru_scan import rglru_scan_kernel
-from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
 from repro_torch.kernels.ssd_scan import ssd_scan_kernel
 
 TOL = {
@@ -275,9 +269,9 @@ def _qkv(B, H, KV, Sq, Skv, hd, dtype, seed):
 @pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,window,q_offset", FA_CASES)
 def test_flash_attention_matches_reference(B, H, KV, Sq, Skv, hd, window, q_offset, dtype):
     (jq, tq), (jk, tk), (jv, tv) = _qkv(B, H, KV, Sq, Skv, hd, dtype, Sq * H + Skv)
-    before = dict(FA_LAUNCHES)
+    before = dict(LAUNCHES)
     out = t_ops.flash_attention(tq, tk, tv, causal=True, window=window, q_offset=q_offset)
-    assert FA_LAUNCHES == before  # CPU tensors: the plain version
+    assert LAUNCHES == before  # CPU tensors: the plain version
     assert out.shape == (B, Sq, H, hd) and out.dtype == TORCH[dtype]
     ref = t_ref.flash_attention_ref(
         tq.transpose(1, 2), tk.transpose(1, 2), tv.transpose(1, 2),
@@ -325,9 +319,9 @@ def _scan_inputs(B, S, W, seed):
 def test_rglru_scan_matches_reference(B, S, W, with_h0):
     a, b, h0 = _scan_inputs(B, S, W, S * W)
     th0 = torch.from_numpy(h0) if with_h0 else None
-    before = dict(RG_LAUNCHES)
+    before = dict(LAUNCHES)
     h, h_last = t_ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b), th0)
-    assert RG_LAUNCHES == before
+    assert LAUNCHES == before
     assert h.shape == (B, S, W) and h_last.shape == (B, W)
     assert h.dtype == h_last.dtype == torch.float32
     assert torch.equal(h[:, -1], h_last)
@@ -407,10 +401,10 @@ SSD_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_matches_reference(B, S, H, P, N, chunk, dtype):
     jx, tx = _ssd_inputs(B, S, H, P, N, dtype, S * H)
-    before = dict(SSD_LAUNCHES)
+    before = dict(LAUNCHES)
     y, h = t_ops.ssd_scan(*tx, chunk=chunk)
     ry, rh = t_ref.ssd_scan_ref(*tx)
-    assert SSD_LAUNCHES == before  # CPU tensors: the plain version
+    assert LAUNCHES == before  # CPU tensors: the plain version
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
     assert torch.equal(y, ry) and torch.equal(h, rh)
@@ -470,7 +464,7 @@ def test_ssd_scan_tc_kernel_refuses_what_its_body_does_not_take():
     dtype, P, N or chunk than mamba2-1.3b's bf16 heads, x/Bm/Cm off a
     16-byte boundary (its 16-byte loads would fault on the card), and,
     those met, CPU tensors."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES, ssd_scan_tc_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan_tc_kernel
 
     before = dict(LAUNCHES)
     _, good = _ssd_inputs(1, 64, 2, 64, 128, "bfloat16", 0)

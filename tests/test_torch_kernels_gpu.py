@@ -31,7 +31,7 @@ import torch
 
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.coded_combine import LAUNCHES
+from repro_torch.kernels._build import LAUNCHES
 
 TOL = {
     "float32": dict(rtol=1e-5, atol=1e-5),
@@ -151,16 +151,15 @@ FA_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, ato
 def test_flash_attention_kernel_matches_plain_version(
     cuda, dtype, B, H, KV, Sq, Skv, hd, window, q_offset
 ):
-    from repro_torch.kernels.flash_attention import LAUNCHES as FA
 
     g = torch.Generator(device="cpu").manual_seed(Sq * hd)
     q = torch.randn(B, Sq, H, hd, generator=g).to(TORCH[dtype]).to(cuda)
     k = torch.randn(B, Skv, KV, hd, generator=g).to(TORCH[dtype]).to(cuda)
     v = torch.randn(B, Skv, KV, hd, generator=g).to(TORCH[dtype]).to(cuda)
-    before = FA["flash_attention"]
+    before = LAUNCHES["flash_attention"]
     got = t_ops.flash_attention(q, k, v, causal=True, window=window, q_offset=q_offset)
     torch.cuda.synchronize()
-    assert FA["flash_attention"] == before + 1
+    assert LAUNCHES["flash_attention"] == before + 1
     want = t_ref.flash_attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=window, q_offset=q_offset,
@@ -184,16 +183,15 @@ def test_flash_attention_kernel_matches_plain_version(
     ],
 )
 def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, W, with_h0):
-    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
 
     g = torch.Generator(device="cpu").manual_seed(S + W)
     a = (torch.rand(B, S, W, generator=g) * 0.8 + 0.2).to(cuda)
     b = torch.randn(B, S, W, generator=g).to(cuda)
     h0 = torch.randn(B, W, generator=g).to(cuda) if with_h0 else None
-    before = RG["rglru_scan"]
+    before = LAUNCHES["rglru_scan"]
     h, h_last = t_ops.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
-    assert RG["rglru_scan"] == before + 1
+    assert LAUNCHES["rglru_scan"] == before + 1
     want_h, want_last = t_ref.rglru_scan_ref(a, b, h0)
     # Same sequential recurrence; only FMA contraction differs.
     np.testing.assert_allclose(_np(h), _np(want_h), rtol=1e-5, atol=1e-5)
@@ -230,17 +228,15 @@ def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
     ],
 )
 def test_ssd_scan_kernel_matches_plain_version(cuda, dtype, B, S, H, P, N, chunk):
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
-
     from repro_torch.kernels.ssd_scan import ssd_body
 
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, TORCH[dtype], cuda)
     # The body the rule picks launches once, the other not at all.
     key = {"tensor_cores": "ssd_scan_tc", "cuda_cores": "ssd_scan"}[ssd_body(x, Bm, Cm, chunk)]
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     y, h = t_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert SSD == dict(before, **{key: before[key] + 1})
+    assert LAUNCHES == dict(before, **{key: before[key] + 1})
     want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == (B, S, H, P) and h.shape == (B, H, P, N)
@@ -257,15 +253,14 @@ def test_ssd_scan_tensor_core_body_matches_exact_answer(cuda, S, chunk):
     multiple of every chunk, ragged, and shorter than one chunk, with head
     0 at A = -16 (mamba2-1.3b's fastest decay): within SSD_TOL of the
     exact f64 recurrence, that head alone too."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_scan_tc_kernel
 
     x, dt, A, Bm, Cm = _ssd_inputs(2, S, 4, 64, 128, torch.bfloat16, cuda, seed=chunk)
     A[0] = -16.0
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     y, h = ssd_scan_tc_kernel(x, dt, A, Bm, Cm, chunk)
     torch.cuda.synchronize()
-    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
+    assert LAUNCHES == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
     want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
     assert torch.isfinite(y).all() and torch.isfinite(h).all()
     assert _normwise(y, want_y) <= SSD_TOL
@@ -280,17 +275,16 @@ def test_ssd_scan_tensor_core_body_refuses_a_misaligned_view(cuda, operand):
     """A contiguous view one element past a 16-byte boundary raises
     ValueError before the launch, and the context stays usable: the same
     values at an aligned address then meet the exact answer."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_scan_tc_kernel
 
     args = dict(zip(("x", "dt", "A", "Bm", "Cm"),
                     _ssd_inputs(1, 300, 2, 64, 128, torch.bfloat16, cuda)))
     view = _at_offset(args[operand], 1)
     assert view.is_contiguous() and view.data_ptr() % 16
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     with pytest.raises(ValueError, match="16-byte boundary"):
         ssd_scan_tc_kernel(**dict(args, **{operand: view}), chunk=128)
-    assert SSD == before
+    assert LAUNCHES == before
     y, h = ssd_scan_tc_kernel(**dict(args, **{operand: view.clone()}), chunk=128)
     torch.cuda.synchronize()
     want_y, want_h = t_ref.ssd_scan_ref(*(args[k].double() for k in ("x", "dt", "A", "Bm", "Cm")))
@@ -325,7 +319,6 @@ def test_ssd_scan_bf16_training_runs_the_tensor_cores_and_autograd_of_ssd_chunke
     backward kernel's (launched once), is as close to float64 autograd of
     the plain ``ssd_chunked`` on the same inputs as float32 autograd of it
     (SSD_BWD_FACTOR), each in its input's dtype."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_body
 
     inputs = _ssd_inputs(2, 600, 4, 64, 128, torch.bfloat16, cuda, seed=7)
@@ -334,15 +327,15 @@ def test_ssd_scan_bf16_training_runs_the_tensor_cores_and_autograd_of_ssd_chunke
     g = torch.Generator(device="cpu").manual_seed(11)
     gy = torch.randn(2, 600, 4, 64, generator=g).to(cuda)
     gh = torch.randn(2, 4, 64, 128, generator=g).to(cuda)
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     y, h = t_ops.ssd_scan(*a, chunk=256)
     torch.cuda.synchronize()
-    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
+    assert LAUNCHES == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1)
     want_y, want_h = t_ref.ssd_scan_ref(*(t.double() for t in inputs))
     assert _normwise(y, want_y) <= SSD_TOL and _normwise(h, want_h) <= SSD_TOL
     torch.autograd.backward([y, h], [gy, gh])
     torch.cuda.synchronize()
-    assert SSD == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1,
+    assert LAUNCHES == dict(before, ssd_scan_tc=before["ssd_scan_tc"] + 1,
                        ssd_scan_bwd_tc=before["ssd_scan_bwd_tc"] + 1)
     assert [t.grad.dtype for t in a] == [t.dtype for t in inputs]
     gaps, _ = _ssd_bwd_gaps([t.grad for t in a], inputs, gy, gh, 256)
@@ -417,16 +410,15 @@ def test_ssd_scan_backward_kernel_matches_float64(cuda, chunk, S, with_gh):
     ``ssd_chunked`` (module note), as returned and as float32 sums; every
     gradient finite and in its input's dtype; the same bits on a second run;
     one launch counted a call."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_tc_kernel
 
     inputs, gy, gh = _ssd_bwd_case(cuda, chunk, S, with_gh)
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     got = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk)
     again = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk)
     sums = ssd_scan_bwd_tc_kernel(*inputs, gy, gh, chunk, torch.float32)
     torch.cuda.synchronize()
-    assert SSD == dict(before, ssd_scan_bwd_tc=before["ssd_scan_bwd_tc"] + 3)
+    assert LAUNCHES == dict(before, ssd_scan_bwd_tc=before["ssd_scan_bwd_tc"] + 3)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     assert [t.dtype for t in got] == [t.dtype for t in inputs]
     assert all(torch.isfinite(t).all() for t in (*got, *sums))
@@ -459,15 +451,14 @@ def test_ssd_scan_backward_log_decay_gradients_match_float64(cuda):
 def test_ssd_scan_float32_backward_stays_autograd_of_ssd_chunked(cuda):
     """Outside the tensor-core domain (float32 here) the backward is
     autograd of ``ssd_chunked``: the backward kernel never launches."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES as SSD
 
     inputs = _ssd_inputs(1, 300, 2, 64, 128, torch.float32, cuda, seed=3)
     a = [t.clone().requires_grad_(True) for t in inputs]
-    before = dict(SSD)
+    before = dict(LAUNCHES)
     y, h = t_ops.ssd_scan(*a, chunk=128)
     (y.sum() + h.sum()).backward()
     torch.cuda.synchronize()
-    assert SSD == dict(before, ssd_scan=before["ssd_scan"] + 1)
+    assert LAUNCHES == dict(before, ssd_scan=before["ssd_scan"] + 1)
     assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in a)
 
 
@@ -534,14 +525,13 @@ def _bwd_inputs(B, H, KV, S, hd, dtype, window, device, seed):
     ],
 )
 def test_flash_attention_bwd_kernel_matches_plain_version(cuda, dtype, B, H, KV, S, hd, window):
-    from repro_torch.kernels.flash_attention import LAUNCHES as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
 
     q, k, v, o, do, lse = _bwd_inputs(B, H, KV, S, hd, dtype, window, cuda, S + hd)
-    before = FA["flash_attention_bwd"]
+    before = LAUNCHES["flash_attention_bwd"]
     got = flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True, window=window)
     torch.cuda.synchronize()
-    assert FA["flash_attention_bwd"] == before + 1
+    assert LAUNCHES["flash_attention_bwd"] == before + 1
     want = t_ref.flash_attention_bwd_ref(
         *(t.transpose(1, 2) for t in (q, k, v, o, do)), lse, True, window
     )
@@ -574,17 +564,16 @@ def test_flash_attention_bwd_tensor_core_body_refuses_a_misaligned_view(cuda, op
     cannot map it) raises ValueError before any launch, and the context
     stays usable: the same values at an aligned address then meet the
     plain version."""
-    from repro_torch.kernels.flash_attention import LAUNCHES as FA
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
 
     args = dict(zip(("q", "k", "v", "out", "dout", "lse"),
                     _bwd_inputs(1, 4, 2, 200, 128, "bfloat16", None, cuda, 3)))
     view = _at_offset(args[operand], 1)
     assert view.is_contiguous() and view.data_ptr() % 16
-    before = dict(FA)
+    before = dict(LAUNCHES)
     with pytest.raises(ValueError, match="16-byte boundary"):
         flash_attention_bwd_kernel(**dict(args, **{operand: view}), causal=True)
-    assert FA == before
+    assert LAUNCHES == before
     got = flash_attention_bwd_kernel(**dict(args, **{operand: view.clone()}), causal=True)
     torch.cuda.synchronize()
     want = t_ref.flash_attention_bwd_ref(
@@ -615,7 +604,6 @@ RG_BWD_TOL = 1e-5
 @pytest.mark.parametrize("with_h0", [False, True])
 @pytest.mark.parametrize("B,S,W", [(2, 512, 4096), (1, 1000, 300), (1, 2049, 300), (1, 4096, 4096)])
 def test_rglru_scan_bwd_kernel_matches_plain_version(cuda, B, S, W, with_h0):
-    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_kernel
 
     g = torch.Generator(device="cpu").manual_seed(S + W)
@@ -624,10 +612,10 @@ def test_rglru_scan_bwd_kernel_matches_plain_version(cuda, B, S, W, with_h0):
     dh = torch.randn(B, S, W, generator=g).to(cuda)
     dl = torch.randn(B, W, generator=g).to(cuda)
     h0 = torch.randn(B, W, generator=g).to(cuda) if with_h0 else None
-    before = RG["rglru_scan_bwd"]
+    before = LAUNCHES["rglru_scan_bwd"]
     da, db, dh0 = rglru_scan_bwd_kernel(a, h, h0, dh, dl)
     torch.cuda.synchronize()
-    assert RG["rglru_scan_bwd"] == before + 1
+    assert LAUNCHES["rglru_scan_bwd"] == before + 1
     want = t_ref.rglru_scan_bwd_ref(a, h, h0, dh, dl)
     for name, got, w in zip(("da", "db", "dh0"), (da, db, dh0), want):
         assert torch.isfinite(got).all(), name
@@ -639,18 +627,16 @@ def test_autograd_through_k3_and_k5_on_the_card(cuda):
     """ops.flash_attention and ops.rglru_scan on CUDA tensors that need a
     gradient: one forward and one backward launch each, gradients equal
     to autograd of the plain versions (f32 round-off)."""
-    from repro_torch.kernels.flash_attention import LAUNCHES as FA
-    from repro_torch.kernels.rglru_scan import LAUNCHES as RG
 
     g = torch.Generator(device="cpu").manual_seed(5)
     q = torch.randn(2, 200, 4, 64, generator=g).to(cuda).requires_grad_(True)
     kv = torch.randn(2, 2, 200, 2, 64, generator=g).to(cuda).requires_grad_(True)
-    before = dict(FA)
+    before = dict(LAUNCHES)
     out = t_ops.flash_attention(q, kv[0], kv[1], causal=True, window=50)
     do = torch.randn(out.shape, generator=g).to(cuda)
     got = torch.autograd.grad(out, (q, kv), do)
-    assert FA == {"flash_attention": before["flash_attention"] + 1,
-                  "flash_attention_bwd": before["flash_attention_bwd"] + 1}
+    assert LAUNCHES == dict(before, flash_attention=before["flash_attention"] + 1,
+                            flash_attention_bwd=before["flash_attention_bwd"] + 1)
     ref_out = t_ref.flash_attention_ref(
         q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2), True, 50
     ).transpose(1, 2)
@@ -661,12 +647,12 @@ def test_autograd_through_k3_and_k5_on_the_card(cuda):
     a = (torch.rand(2, 100, 40, generator=g) * 0.8 + 0.2).to(cuda).requires_grad_(True)
     b = torch.randn(2, 100, 40, generator=g).to(cuda).requires_grad_(True)
     h0 = torch.randn(2, 40, generator=g).to(cuda).requires_grad_(True)
-    before = dict(RG)
+    before = dict(LAUNCHES)
     h, h_last = t_ops.rglru_scan(a, b, h0)
     dh = torch.randn(h.shape, generator=g).to(cuda)
     got = torch.autograd.grad((h * dh).sum() + h_last.sum(), (a, b, h0))
-    assert RG == {"rglru_scan": before["rglru_scan"] + 1,
-                  "rglru_scan_bwd": before["rglru_scan_bwd"] + 1}
+    assert LAUNCHES == dict(before, rglru_scan=before["rglru_scan"] + 1,
+                            rglru_scan_bwd=before["rglru_scan_bwd"] + 1)
     hr, hlr = t_ref.rglru_scan_ref(a, b, h0)
     want = torch.autograd.grad((hr * dh).sum() + hlr.sum(), (a, b, h0))
     for got_, want_ in zip(got, want):
@@ -742,15 +728,14 @@ def test_causal_conv_silu_kernel_is_the_plain_expression_bit_for_bit(cuda, B, S,
                                                                      width):
     """The forward kernel's output equals F.silu(layers.causal_conv(...))
     to the bit, contiguous in the input's dtype, one launch counted."""
-    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
     from repro_torch.kernels.causal_conv import causal_conv_silu_kernel
     from repro_torch.models.layers import causal_conv
 
     x, w, b, _ = _conv_inputs(cuda, B, S, C, W, dtype, width)
-    before = dict(CONV)
+    before = dict(LAUNCHES)
     got = causal_conv_silu_kernel(x, w, b)
     torch.cuda.synchronize()
-    assert CONV == dict(before, causal_conv_silu=before["causal_conv_silu"] + 1)
+    assert LAUNCHES == dict(before, causal_conv_silu=before["causal_conv_silu"] + 1)
     assert got.dtype == x.dtype and got.is_contiguous()
     assert torch.equal(got, torch.nn.functional.silu(causal_conv(x, w, b)))
 
@@ -760,15 +745,14 @@ def test_causal_conv_silu_kernel_is_the_plain_expression_bit_for_bit(cuda, B, S,
 def test_causal_conv_silu_backward_kernel_matches_float64(cuda, B, S, C, W, dtype, width):
     """dx, dw and db against float64 (module note), in the input's dtype,
     the same bits on a second run, one launch counted a call."""
-    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
     from repro_torch.kernels.causal_conv import causal_conv_silu_bwd_kernel
 
     x, w, b, gy = _conv_inputs(cuda, B, S, C, W, dtype, width)
-    before = dict(CONV)
+    before = dict(LAUNCHES)
     got = causal_conv_silu_bwd_kernel(x, w, b, gy)
     again = causal_conv_silu_bwd_kernel(x, w, b, gy)
     torch.cuda.synchronize()
-    assert CONV == dict(before, causal_conv_silu_bwd=before["causal_conv_silu_bwd"] + 2)
+    assert LAUNCHES == dict(before, causal_conv_silu_bwd=before["causal_conv_silu_bwd"] + 2)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
     assert [t.dtype for t in got] == [x.dtype] * 3
     exact = t_ref.causal_conv_silu_bwd_ref(*(t.double() for t in (x, w, b, gy)))
@@ -787,7 +771,6 @@ def test_causal_conv_silu_through_ops_on_the_card(cuda):
     """`ops.causal_conv_silu` on a strided CUDA slice that needs a gradient:
     one forward and one backward launch, the forward kernel's output and the
     backward kernel's gradients; widths beyond 4 and mixed dtypes raise."""
-    from repro_torch.kernels.causal_conv import LAUNCHES as CONV
     from repro_torch.kernels.causal_conv import (
         causal_conv_silu_bwd_kernel,
         causal_conv_silu_kernel,
@@ -796,11 +779,12 @@ def test_causal_conv_silu_through_ops_on_the_card(cuda):
     x, w, b, gy = _conv_inputs(cuda, 2, 300, 288, 4, "bfloat16", 552)
     leaves = [t.clone().requires_grad_(True) for t in (w, b)]
     xs = x.detach().requires_grad_(True)
-    before = dict(CONV)
+    before = dict(LAUNCHES)
     out = t_ops.causal_conv_silu(xs, *leaves)
     got = torch.autograd.grad(out, [xs, *leaves], gy)
     torch.cuda.synchronize()
-    assert CONV == {k: v + 1 for k, v in before.items()}
+    assert LAUNCHES == dict(before, causal_conv_silu=before["causal_conv_silu"] + 1,
+                            causal_conv_silu_bwd=before["causal_conv_silu_bwd"] + 1)
     assert torch.equal(out, causal_conv_silu_kernel(x, w, b))
     assert all(torch.equal(u, v)
                for u, v in zip(got, causal_conv_silu_bwd_kernel(x, w, b, gy)))

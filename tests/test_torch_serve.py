@@ -11,8 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCHS, PORT_ARCHS, get_smoke_config
-from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
-from repro_torch.kernels.rglru_scan import LAUNCHES as RG_LAUNCHES
+from repro_torch.kernels._build import LAUNCHES
 from repro_torch.launch import serve
 from repro_torch.models import get_model
 
@@ -27,12 +26,12 @@ def _prompt_len(cfg, n: int) -> int:
 
 @pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_cli_serves_on_cpu_deterministically(arch, capsys):
-    before = (dict(FA_LAUNCHES), dict(RG_LAUNCHES))
+    before = dict(LAUNCHES)
     n = _prompt_len(get_smoke_config(arch), 12)
     args = [*ARGS[:-3], str(n), *ARGS[-2:]]
     r1 = serve.main(["--arch", arch, *args])
     r2 = serve.main(["--arch", arch, *args])
-    assert (dict(FA_LAUNCHES), dict(RG_LAUNCHES)) == before
+    assert LAUNCHES == before
     toks = r1["tokens"]
     assert toks.shape == (2, 5) and toks.dtype == torch.int64
     assert int(toks.min()) >= 0 and int(toks.max()) < get_smoke_config(arch).vocab
